@@ -1,0 +1,160 @@
+"""Weight bridge: flax ``ConformerCTC`` variables -> torch ``state_dict``.
+
+The flax tree ``{"params": ..., "batch_stats": ...}`` arrives as nested
+dicts of numpy arrays (or flattened to ``params/encoder/.../kernel`` names,
+the layout ``tensorflowasr_tpu/export/native_export.py::_flatten`` writes).
+The encoder stack may be unrolled (``conformer_block_{i}``) or scanned
+(``conformer_blocks/scan/block`` with every leaf stacked on axis 0).
+
+Layout changes, by leaf:
+
+- Dense ``kernel`` [in, out]            -> ``weight`` [out, in]
+- MHA q/k/v ``kernel`` [d, h, hd]       -> ``weight`` [h*hd, d]
+- MHA out ``kernel`` [h, hd, d]         -> ``weight`` [d, h*hd]
+- MHA bias [h, hd]                      -> [h*hd]
+- Conv ``kernel`` HWIO                  -> ``weight`` OIHW
+- depthwise ``kernel`` [K, 1, C]        -> ``weight`` [C, 1, K] (not flipped)
+- LayerNorm / BatchNorm ``scale``       -> ``weight``
+- BatchNorm stats ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
+- Embed ``embedding``                   -> ``weight``
+
+Every produced key must exist in the torch model and every model key must
+be produced, with matching shapes; anything else raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from tensorflowasr_tpu_torch.models.conformer import (
+    ConformerConfig,
+    ConformerCTC,
+)
+
+_SCAN = "encoder/conformer_blocks/scan/block/"
+_BLOCK = re.compile(r"(?:decoder_)?conformer_block_(\d+)$")
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts -> {"a/b/leaf": array} (native_export's names)."""
+    if isinstance(tree, Mapping):
+        out: Dict[str, np.ndarray] = {}
+        for k in sorted(tree):
+            out.update(flatten(tree[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _unstack_scanned(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    out = {}
+    for name, arr in flat.items():
+        coll, _, rest = name.partition("/")
+        if rest.startswith(_SCAN):
+            leaf = rest[len(_SCAN):]
+            for i in range(arr.shape[0]):
+                out[f"{coll}/encoder/conformer_block_{i}/{leaf}"] = arr[i]
+        else:
+            out[name] = arr
+    return out
+
+
+def _convert_leaf(path: list, arr: np.ndarray):
+    """(flax module path + leaf name, array) -> (torch leaf name, array)."""
+    leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
+    if leaf == "kernel":
+        if arr.ndim == 2:                                   # Dense
+            return "weight", arr.T
+        if arr.ndim == 4:                                   # Conv HWIO
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if parent in ("query", "key", "value"):             # [d, h, hd]
+            return "weight", arr.reshape(arr.shape[0], -1).T
+        if parent == "out":                                 # [h, hd, d]
+            return "weight", arr.reshape(-1, arr.shape[-1]).T
+        if arr.ndim == 3 and arr.shape[1] == 1:             # depthwise
+            return "weight", arr.transpose(2, 1, 0)
+        raise KeyError(f"unknown kernel layout at {'/'.join(path)} "
+                       f"{arr.shape}")
+    if leaf == "bias":
+        return "bias", arr.reshape(-1)
+    renamed = {"scale": "weight", "embedding": "weight",
+               "mean": "running_mean", "var": "running_var",
+               "freq2mel": "freq2mel"}
+    if leaf not in renamed:
+        raise KeyError(f"unknown leaf {'/'.join(path)}")
+    return renamed[leaf], arr
+
+
+def to_torch_names(flat: Mapping[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+    """Flattened flax variables of any module of ``models/layers.py`` or
+    ``models/conformer.py`` (``params/...`` and ``batch_stats/...`` names)
+    -> that module's torch state_dict (f32 CPU tensors), unchecked."""
+    flat = _unstack_scanned(dict(flat))
+    state: Dict[str, torch.Tensor] = {}
+    for name, arr in flat.items():
+        coll, *path = name.split("/")
+        if coll not in ("params", "batch_stats") or not path:
+            raise KeyError(f"unexpected variable {name}")
+        modules = [f"blocks.{m.group(1)}" if (m := _BLOCK.match(p)) else p
+                   for p in path[:-1]]
+        leaf, value = _convert_leaf(path, np.asarray(arr, np.float32))
+        key = ".".join(modules + [leaf])
+        if key in state:
+            raise KeyError(f"{name} maps onto {key} twice")
+        state[key] = torch.from_numpy(np.ascontiguousarray(value))
+    return state
+
+
+def convert_flat(flat: Mapping[str, np.ndarray], cfg: ConformerConfig
+                 ) -> Dict[str, torch.Tensor]:
+    """Flattened flax ``ConformerCTC`` variables -> a strict state_dict."""
+    state = to_torch_names(flat)
+    _check_against_model(state, cfg)
+    return state
+
+
+def convert_flax_variables(variables: Mapping, cfg: ConformerConfig
+                           ) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` nested numpy dicts -> a
+    strict ``ConformerCTC`` state_dict."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unexpected variable collections {sorted(unknown)}")
+    return convert_flat(flatten(dict(variables)), cfg)
+
+
+def load_npz(path: str, cfg: ConformerConfig) -> Dict[str, torch.Tensor]:
+    """A ``.npz`` of flattened flax variables -> a strict state_dict."""
+    with np.load(path) as data:
+        return convert_flat({k: data[k] for k in data.files}, cfg)
+
+
+def num_classes(state: Mapping[str, torch.Tensor]):
+    """(phone classes, char classes) read off the two output heads."""
+    return (state["ctc_decoder.fully_connected.weight"].shape[0],
+            state["translator.fully_connected.weight"].shape[0])
+
+
+def _check_against_model(state: Mapping[str, torch.Tensor],
+                         cfg: ConformerConfig) -> None:
+    for head in ("ctc_decoder", "translator"):
+        if f"{head}.fully_connected.weight" not in state:
+            raise KeyError(f"missing {head}/fully_connected")
+    with torch.device("meta"):
+        model = ConformerCTC(cfg, *num_classes(state))
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(state))
+    unused = sorted(set(state) - set(want))
+    if missing or unused:
+        raise KeyError(f"flax variables do not fit the model: missing "
+                       f"{missing[:8]}{'...' if len(missing) > 8 else ''}, "
+                       f"unused {unused[:8]}"
+                       f"{'...' if len(unused) > 8 else ''}")
+    bad = [(k, tuple(state[k].shape), s) for k, s in want.items()
+           if tuple(state[k].shape) != s]
+    if bad:
+        raise ValueError(f"shape mismatch (key, flax, torch): {bad[:8]}")

@@ -1,0 +1,257 @@
+"""Audio frontend: framed-DFT log-mel spectrogram.
+
+Counterpart of ``tensorflowasr_tpu/ops/frontend.py``:
+
+    wav [B, T]
+      -> power  = |windowed DFT of hop-strided frames|^2   (K1 on CUDA)
+      -> dB     ('same':  10*log10, per-example max-normalized, floor -80;
+                 'valid': plain log10 — the chunk/streaming variant)
+      -> Slaney mel matmul [n_freq, n_mels]
+
+Semantics kept from the JAX package:
+- Hann window is periodic; the mel basis is Slaney (htk=False, norm=1).
+- 'same' padding is TF-style (odd extra sample on the right), 'valid'
+  left-pads n_fft-1; both give ceil(T / hop) frames.
+- dB is applied to the POWER spectrogram and the mel matmul mixes dB
+  values.
+
+:func:`power_spectrogram` dispatches on the tensor's device: a CUDA tensor
+goes to the hand-written kernel (``ops/power_spectrogram.py``), a CPU
+tensor to the plain version. The dB pass and the mel matmul stay plain
+torch: the offline dB needs a per-example global max, a second pass over
+the whole spectrogram.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy) constant builders
+# ---------------------------------------------------------------------------
+
+def hann_window(n: int) -> np.ndarray:
+    """Periodic Hann window (scipy get_window('hann', n, fftbins=True))."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(
+        np.float32)
+
+
+def stft_kernels(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed real/imag DFT matrices, each [n_fft, n_fft//2 + 1]."""
+    n_freq = n_fft // 2 + 1
+    t = np.arange(n_fft)[:, None]
+    w = np.arange(n_freq)[None, :] * 2.0 * np.pi / n_fft
+    real = np.cos(t * w)
+    imag = -np.sin(t * w)
+    win = hann_window(n_fft)[:, None]
+    return (real * win).astype(np.float32), (imag * win).astype(np.float32)
+
+
+def _hz_to_mel_slaney(f: np.ndarray) -> np.ndarray:
+    f = np.asarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = f / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = f >= min_log_hz
+    return np.where(log_t, min_log_mel + np.log(np.maximum(f, 1e-10)
+                                                / min_log_hz) / logstep, mels)
+
+
+def _mel_to_hz_slaney(m: np.ndarray) -> np.ndarray:
+    m = np.asarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = m * f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_t = m >= min_log_mel
+    return np.where(log_t, min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    freqs)
+
+
+def mel_frequencies(n_mels: int, fmin: float, fmax: float) -> np.ndarray:
+    mels = np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax),
+                       n_mels)
+    return _mel_to_hz_slaney(mels)
+
+
+def mel_filterbank(sr: int, n_fft: int, n_mels: int = 80,
+                   fmin: float = 0.0, fmax: Optional[float] = None
+                   ) -> np.ndarray:
+    """Slaney triangular mel filterbank with area normalisation, shape
+    [n_fft//2+1, n_mels] (librosa.filters.mel(sr, n_fft, n_mels, fmin,
+    fmax, htk=False, norm=1) transposed)."""
+    if fmax is None:
+        fmax = sr / 2.0
+    n_freq = n_fft // 2 + 1
+    fftfreqs = np.linspace(0.0, sr / 2.0, n_freq)
+    mel_f = mel_frequencies(n_mels + 2, fmin, fmax)
+
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]   # [n_mels+2, n_freq]
+
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))  # [n_mels, n_freq]
+
+    weights *= (2.0 / (mel_f[2: n_mels + 2] - mel_f[:n_mels]))[:, None]
+    return weights.T.astype(np.float32)         # [n_freq, n_mels]
+
+
+# ---------------------------------------------------------------------------
+# Config and cached constants
+# ---------------------------------------------------------------------------
+
+def _same_pad(t: int, k: int, s: int) -> Tuple[int, int]:
+    """TF-style conv 'same' pads (lo, hi): length t, kernel k, stride s."""
+    out = -(-t // s)
+    pad = max((out - 1) * s + k - t, 0)
+    return pad // 2, pad - pad // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class LogMelFrontendConfig:
+    sample_rate: int = 16000
+    n_fft: int = 1024
+    stride_ms: int = 10
+    n_mels: int = 80
+    fmin: float = 0.0
+    fmax: Optional[float] = None
+    padding: str = "same"          # 'same' (offline) | 'valid' (chunk/causal)
+    dynamic_range_db: float = 80.0
+
+    @property
+    def hop(self) -> int:
+        return self.sample_rate * self.stride_ms // 1000
+
+    @property
+    def n_freq(self) -> int:
+        return self.n_fft // 2 + 1
+
+
+@functools.lru_cache(maxsize=8)
+def _frontend_constants(cfg: LogMelFrontendConfig):
+    """Host numpy constants: DFT [n_fft, 2*n_freq] (re | im), mel basis."""
+    real, imag = stft_kernels(cfg.n_fft)
+    dft = np.concatenate([real, imag], axis=1)
+    fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
+                        cfg.fmin, cfg.fmax)
+    return dft, fb
+
+
+@functools.lru_cache(maxsize=8)
+def _padded_dft(cfg: LogMelFrontendConfig):
+    """DFT zero-padded to the block-framing row count ceil(n_fft/hop)*hop."""
+    dft, _ = _frontend_constants(cfg)
+    kpad = -(-cfg.n_fft // cfg.hop) * cfg.hop
+    return np.pad(dft, ((0, kpad - cfg.n_fft), (0, 0)))
+
+
+@functools.lru_cache(maxsize=16)
+def _device_dft(cfg: LogMelFrontendConfig, device: torch.device
+                ) -> torch.Tensor:
+    return torch.from_numpy(_frontend_constants(cfg)[0]).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_mel(cfg: LogMelFrontendConfig, device: torch.device
+                ) -> torch.Tensor:
+    return torch.from_numpy(_frontend_constants(cfg)[1]).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_dft(cfg: LogMelFrontendConfig, device: torch.device
+                ) -> torch.Tensor:
+    """K1's DFT operand, uploaded once per (config, device)."""
+    return torch.from_numpy(k1.tile_dft(_padded_dft(cfg), cfg.hop)).to(device)
+
+
+def _left_pad(t: int, cfg: LogMelFrontendConfig) -> int:
+    if cfg.padding == "same":
+        return _same_pad(t, cfg.n_fft, cfg.hop)[0]
+    if cfg.padding == "valid":
+        return cfg.n_fft - 1
+    raise ValueError(cfg.padding)
+
+
+# ---------------------------------------------------------------------------
+# Tensor ops
+# ---------------------------------------------------------------------------
+
+def wav_to_float(wav: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 in [-1, 1); float input passes through."""
+    if wav.dtype == torch.int16:
+        return wav.to(torch.float32) / 32768.0
+    return wav
+
+
+def power_spectrogram_reference(wav: torch.Tensor,
+                                cfg: LogMelFrontendConfig) -> torch.Tensor:
+    """Plain torch [B, T] -> [B, n_frames, n_freq] power spectrum."""
+    wav = wav.to(torch.float32)
+    return k1.power_spectrogram_plain(wav, _device_dft(cfg, wav.device),
+                                      cfg.hop, _left_pad(wav.shape[1], cfg))
+
+
+def power_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig
+                      ) -> torch.Tensor:
+    """[B, T] -> [B, n_frames, n_freq] power spectrum: the K1 kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if wav.device.type == "cuda":
+        wav = wav.to(torch.float32).contiguous()
+        return k1.power_spectrogram_cuda(
+            wav, _kernel_dft(cfg, wav.device), cfg.n_freq, cfg.hop,
+            _left_pad(wav.shape[1], cfg))
+    if wav.device.type == "cpu":
+        return power_spectrogram_reference(wav, cfg)
+    raise ValueError(f"power_spectrogram: unsupported device {wav.device}")
+
+
+def amplitude_to_db(x: torch.Tensor, amin: float = 1e-10,
+                    dynamic_range: float = 80.0) -> torch.Tensor:
+    """10*log10 with per-example max normalization to [-range, 0]; the max
+    is over all non-batch axes."""
+    log_spec = 10.0 * torch.log(torch.clamp_min(x, amin)) / math.log(10.0)
+    axes = tuple(range(1, x.dim()))
+    log_spec = log_spec - torch.amax(log_spec, dim=axes, keepdim=True)
+    return torch.clamp_min(log_spec, -dynamic_range)
+
+
+def chunk_amplitude_to_db(x: torch.Tensor, amin: float = 1e-10
+                          ) -> torch.Tensor:
+    """Plain log10 without normalization — the streaming/causal variant."""
+    return torch.log(torch.clamp_min(x, amin)) / math.log(10.0)
+
+
+def _to_db(power: torch.Tensor, cfg: LogMelFrontendConfig) -> torch.Tensor:
+    if cfg.padding == "valid":
+        return chunk_amplitude_to_db(power)
+    return amplitude_to_db(power, dynamic_range=cfg.dynamic_range_db)
+
+
+def log_mel_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig,
+                        mel_weights: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """[B, T] -> [B, n_frames, n_mels] log-mel features (dB on the power
+    spectrum first, then the mel matmul). ``mel_weights`` overrides the
+    fixed Slaney basis (the trainable filterbank)."""
+    fb = _device_mel(cfg, wav.device) if mel_weights is None else mel_weights
+    return torch.matmul(_to_db(power_spectrogram(wav, cfg), cfg), fb)
+
+
+def spectrogram_feature(wav: torch.Tensor, cfg: LogMelFrontendConfig
+                        ) -> torch.Tensor:
+    """Plain (non-mel) dB spectrogram feature (``mel_layer_type:
+    Spectrogram``)."""
+    return _to_db(power_spectrogram(wav, cfg), cfg)
