@@ -8,12 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi); raises without
              CUDA.
 2. build   - nvcc builds every kernel in ``tensorflowasr_tpu_torch/csrc``.
-3. kernel  - K1 (the power-spectrogram kernel) against its plain PyTorch
-             version, TF32 off: 'same' at B=128 x 7 s, 'valid' at
-             B=16 x 7680 samples, and a ragged T; power within rtol 2e-4 /
-             atol 2e-3, log-mel within rtol 1e-3 / atol 5e-2. Times the
-             kernel, the plain version and ``torch.stft`` at the 'same'
-             shape.
+3. kernel  - K1 (the power-spectrogram kernel, one FFT per frame in shared
+             memory) against its plain PyTorch version, TF32 off: 'same' at
+             B=128 x 7 s, 'valid' at B=16 x 7680 samples, a ragged T, and
+             the one-chunk request shape (B=1 x 7680 samples), which
+             together take both of its slab-copy paths; power within rtol
+             2e-4 / atol 2e-3, log-mel within rtol 1e-3 / atol 5e-2. Times
+             the kernel, the plain version and ``torch.stft`` at the batched
+             and at the request shape, each with median, minimum and
+             spread, beside the bound.
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -24,8 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 K1's launch count is set to 0 just before the ``predict_step`` calls and
 just before the session's 4 requests, and read just after each; both must
 have launched it. The stage breakdown and the card-vs-CPU check run outside
-those windows. The last lines are a
-JSON line of kernel numbers, then ``{"ok": true, "device": {...}}``.
+those windows. K1's request-shape times go on a ``k1_request_shape`` JSON
+line in the kernel phase. The last lines are a JSON line of kernel numbers
+(K1 at the batched shape), then ``{"ok": true, "device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
 """
@@ -44,10 +48,10 @@ import torch
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 SR = 16000
+REQUEST_SAMPLES = 7680               # ASREngine's 0.48 s chunk at B = 1
 N_PHONE, N_CHAR = 231, 9161          # bench.py's class counts
 POWER_TOL = dict(rtol=2e-4, atol=2e-3)
 LOGMEL_TOL = dict(rtol=1e-3, atol=5e-2)
@@ -71,20 +75,9 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float
     return err.max().item()
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def fmt_times(stats: dict) -> str:
+    return (f"median {stats['median']:.4f} min {stats['min']:.4f} spread "
+            f"{stats['spread']:.4f} ms ({stats['reps']} x {stats['inner']})")
 
 
 def noise(shape, seed: int) -> np.ndarray:
@@ -123,16 +116,68 @@ def phase_build() -> None:
         "log_mel_spectrogram_pallas is K1 + the plain dB/mel epilogue")
 
 
-def phase_kernel() -> dict:
+def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False
+            ) -> dict:
+    """Times of K1, its plain version and ``torch.stft`` on one input, and
+    the bound for that input; with ``graph`` also K1 replayed from a CUDA
+    graph."""
+    from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
 
     dev = torch.device("cuda")
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
+    n_fft, n_freq = cfg.n_fft, cfg.n_freq
+    n_frames = -(-t // cfg.hop)
+    lo = fe._left_pad(t, cfg)
+    total = (n_frames - 1) * cfg.hop + n_fft
+    padded = torch.nn.functional.pad(wav, (lo, total - lo - t))
+    window = torch.hann_window(n_fft, periodic=True, device=dev)
+
+    def library():
+        spec = torch.stft(padded, n_fft, cfg.hop, window=window,
+                          center=False, return_complex=True)
+        return spec.abs() ** 2
+
+    within(library().transpose(1, 2), fe.power_spectrogram_reference(
+        wav, cfg), **POWER_TOL)
+    kernel = cuda_times(lambda: fe.power_spectrogram(wav, cfg), reps, 10)
+    plain = cuda_times(lambda: fe.power_spectrogram_reference(wav, cfg),
+                       max(reps // 5, 5), 2)
+    lib = cuda_times(library, max(reps // 2, 5), 5)
+    replayed = graph_times(lambda: fe.power_spectrogram(wav, cfg), reps,
+                           20) if graph else None
+    # The bound counts the least work the function needs: per frame the
+    # window product, a real FFT of n_fft points (2.5 n log2 n FLOP, half a
+    # complex FFT's 5 n log2 n) and re^2 + im^2 per bin; the wav read once
+    # and the power written once.
+    flops = b * n_frames * (n_fft + 2.5 * n_fft * math.log2(n_fft)
+                            + 3 * n_freq)
+    nbytes = 4.0 * (b * t + b * n_frames * n_freq)
+    by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return {"kernel": kernel, "kernel_graph": replayed, "plain": plain,
+            "library": lib, "flops": flops, "bytes": nbytes,
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+
+
+def phase_kernel() -> dict:
+    from tensorflowasr_tpu_torch.ops import frontend as fe
+    from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
+
+    dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    # 'same' batched and the one-chunk request take 16-byte slab copies;
+    # 'valid' (left pad 1023) and the ragged row stride take 4-byte ones
     shapes = (("same", 128, 7 * SR), ("valid", 16, 2560 * 3),
-              ("same", 3, 2 * SR + 77))
-    result = {}
+              ("same", 3, 2 * SR + 77), ("same", 1, REQUEST_SAMPLES))
+    result, copies = {}, set()
     for padding, b, t in shapes:
         cfg = fe.LogMelFrontendConfig(padding=padding)
         wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
+        plan = k1.launch_plan(b, t, cfg.hop, fe._left_pad(t, cfg), sm_count,
+                              base_aligned=wav.data_ptr() % 16 == 0)
+        copies.add(plan.vec16)
         got = fe.power_spectrogram(wav, cfg)
         want = fe.power_spectrogram_reference(wav, cfg)
         torch.cuda.synchronize()
@@ -141,53 +186,47 @@ def phase_kernel() -> dict:
         mel_err = within(fe.log_mel_spectrogram(wav, cfg),
                          torch.matmul(fe._to_db(want, cfg), mel),
                          **LOGMEL_TOL)
-        log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)}: "
-            f"max|err| power {err:.3e}, log-mel {mel_err:.3e}")
+        log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)} "
+            f"(tile {plan.tile_frames} frames, {plan.groups * 64} threads, "
+            f"{16 if plan.vec16 else 4}-byte copies): max|err| power "
+            f"{err:.3e}, log-mel {mel_err:.3e}")
         result["max_abs_err"] = max(result.get("max_abs_err", 0.0), err)
+    if copies != {True, False}:
+        raise AssertionError("the shapes did not cover both copy paths")
 
-    # timing at the serving shape ('same', B = 128 x 7 s)
-    cfg = fe.LogMelFrontendConfig(padding="same")
-    b, t = 128, 7 * SR
-    wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
-    n_frames, n_freq = -(-t // cfg.hop), cfg.n_freq
-    lo = fe._same_pad(t, cfg.n_fft, cfg.hop)[0]
-    total = (n_frames - 1) * cfg.hop + cfg.n_fft
-    padded = torch.nn.functional.pad(wav, (lo, total - lo - t))
-    window = torch.hann_window(cfg.n_fft, periodic=True, device=dev)
+    # the serving shape: 57 MB of wav in, 184 MB of power out, more than the
+    # 50 MB L2, so back-to-back launches find their inputs in device memory
+    batched = time_k1("same", 128, 7 * SR, reps=50)
+    log(f"kernel: K1 same B=128 T={7 * SR} (inputs and outputs exceed the "
+        f"L2): kernel {fmt_times(batched['kernel'])}; plain "
+        f"{fmt_times(batched['plain'])}; library (torch.stft + abs()**2) "
+        f"{fmt_times(batched['library'])}; bound_ms "
+        f"{batched['bound_ms']:.4f} by {batched['bound_by']} "
+        f"({batched['flops']:.4e} FFT FLOP, {batched['bytes']:.4e} B)")
 
-    def library():
-        spec = torch.stft(padded, cfg.n_fft, cfg.hop, window=window,
-                          center=False, return_complex=True)
-        return spec.abs() ** 2
+    # one request chunk: 30 KB in, 98 KB out, all of it L2-resident, so
+    # these are L2-warm times; event times of such short kernels hold the
+    # host's enqueue rate, the graph replay is the device's own time
+    request = time_k1("same", 1, REQUEST_SAMPLES, reps=50, graph=True)
+    log(f"kernel: K1 same B=1 T={REQUEST_SAMPLES} (L2-warm): kernel "
+        f"{fmt_times(request['kernel'])}; kernel replayed from a CUDA graph "
+        f"{fmt_times(request['kernel_graph'])}; plain "
+        f"{fmt_times(request['plain'])}; library (torch.stft + abs()**2) "
+        f"{fmt_times(request['library'])}; bound_ms "
+        f"{request['bound_ms']:.6f} by {request['bound_by']} "
+        f"({request['flops']:.4e} FFT FLOP, {request['bytes']:.4e} B)")
+    log(json.dumps({"k1_request_shape": {
+        "batch": 1, "samples": REQUEST_SAMPLES,
+        "ms": request["kernel"]["median"],
+        "graph_ms": request["kernel_graph"]["median"],
+        "plain_ms": request["plain"]["median"],
+        "library_ms": request["library"]["median"],
+        "bound_ms": request["bound_ms"], "bound_by": request["bound_by"]}}))
 
-    within(library().transpose(1, 2), fe.power_spectrogram_reference(
-        wav, cfg), **POWER_TOL)
-    kernel_ms = cuda_ms(lambda: fe.power_spectrogram(wav, cfg))
-    plain_ms = cuda_ms(lambda: fe.power_spectrogram_reference(wav, cfg))
-    library_ms = cuda_ms(library)
-    # The bound counts the least work the function needs: per frame the
-    # window product, a real FFT of n_fft points (2.5 n log2 n FLOP, half a
-    # complex FFT's 5 n log2 n) and re^2 + im^2 per bin; the wav read once
-    # and the power written once.
-    n_fft = cfg.n_fft
-    flops = b * n_frames * (n_fft + 2.5 * n_fft * math.log2(n_fft)
-                            + 3 * n_freq)
-    nbytes = 4.0 * (b * t + b * n_frames * n_freq)
-    bound_ms = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    # design targets of this kernel's DFT-as-GEMM form (not a bound on the
-    # function): 2 B F n_fft (2 n_freq) FLOP at the f32 and TF32 rates
-    dft_flops = 2.0 * b * n_frames * n_fft * 2 * n_freq
-    log(f"kernel: K1 same B={b} T={t}: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms (torch.stft) {library_ms:.4f}; bound_ms "
-        f"{bound_ms:.4f} ({flops:.4e} FFT FLOP, {nbytes:.4e} B); "
-        f"DFT-as-GEMM targets ({dft_flops:.4e} FLOP) f32 "
-        f"{dft_flops / PEAK_F32_FLOPS * 1e3:.4f} ms, TF32 "
-        f"{dft_flops / PEAK_TF32_FLOPS * 1e3:.4f} ms; "
-        f"{dft_flops / kernel_ms / 1e9:.2f} DFT TFLOP/s achieved")
-    result.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms,
-                  bound_by=("operations" if flops / PEAK_F32_FLOPS
-                            > nbytes / PEAK_BYTES else "bytes"))
+    result.update(ms=batched["kernel"]["median"],
+                  plain_ms=batched["plain"]["median"],
+                  library_ms=batched["library"]["median"],
+                  bound_ms=batched["bound_ms"], bound_by=batched["bound_by"])
     return result
 
 

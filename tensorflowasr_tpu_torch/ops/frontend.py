@@ -150,14 +150,6 @@ def _frontend_constants(cfg: LogMelFrontendConfig):
     return dft, fb
 
 
-@functools.lru_cache(maxsize=8)
-def _padded_dft(cfg: LogMelFrontendConfig):
-    """DFT zero-padded to the block-framing row count ceil(n_fft/hop)*hop."""
-    dft, _ = _frontend_constants(cfg)
-    kpad = -(-cfg.n_fft // cfg.hop) * cfg.hop
-    return np.pad(dft, ((0, kpad - cfg.n_fft), (0, 0)))
-
-
 @functools.lru_cache(maxsize=16)
 def _device_dft(cfg: LogMelFrontendConfig, device: torch.device
                 ) -> torch.Tensor:
@@ -171,10 +163,11 @@ def _device_mel(cfg: LogMelFrontendConfig, device: torch.device
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_dft(cfg: LogMelFrontendConfig, device: torch.device
-                ) -> torch.Tensor:
-    """K1's DFT operand, uploaded once per (config, device)."""
-    return torch.from_numpy(k1.tile_dft(_padded_dft(cfg), cfg.hop)).to(device)
+def _kernel_tables(cfg: LogMelFrontendConfig, device: torch.device
+                   ) -> torch.Tensor:
+    """K1's window / twiddle table, uploaded once per (config, device).
+    Raises on an n_fft the kernel does not take."""
+    return torch.from_numpy(k1.pack_tables(hann_window(cfg.n_fft))).to(device)
 
 
 def _left_pad(t: int, cfg: LogMelFrontendConfig) -> int:
@@ -211,7 +204,7 @@ def power_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig
     if wav.device.type == "cuda":
         wav = wav.to(torch.float32).contiguous()
         return k1.power_spectrogram_cuda(
-            wav, _kernel_dft(cfg, wav.device), cfg.n_freq, cfg.hop,
+            wav, _kernel_tables(cfg, wav.device), cfg.hop,
             _left_pad(wav.shape[1], cfg))
     if wav.device.type == "cpu":
         return power_spectrogram_reference(wav, cfg)

@@ -1,20 +1,26 @@
-"""K1: framed, windowed-DFT power spectrogram on Hopper, beside its plain
-PyTorch version.
+"""K1: framed, Hann-windowed power spectrogram on Hopper, one real FFT per
+frame in shared memory, beside its plain PyTorch version.
 
 Replaces ``tensorflowasr_tpu/ops/pallas_frontend.py::power_spectrogram_pallas``
 (the repo's one Pallas kernel). wav [B, T] f32 -> power [B, ceil(T/hop),
-n_freq] f32, with the 'same' / 'valid' padding given as the left pad ``lo``.
+n_fft/2 + 1] f32, with the 'same' / 'valid' padding given as the left pad
+``lo``.
 
 Bound on an H100: bytes. The function reads the wav once and writes the
-power once, ~4 * (B*T + B*F*n_freq) bytes; at the serving shape (B = 128 x
-7 s) that is ~241 MB, ~72 us at 3.35 TB/s, and a real FFT per frame needs
-only ~2.5e9 FLOP (~38 us at 67 TFLOP/s f32). The kernel's DFT-as-GEMM form
-does 2 * B * F * n_fft * 2 * n_freq = 1.88e11 FLOP, ~2.8 ms at the f32 FMA
-rate: that is its design target, not the function's bound. The kernel
-(``csrc/power_spectrogram.cu``) keeps f32 FMA accumulation so it holds the
-f32 reference's tolerance, frames the signal inside the kernel from a
-shared-memory slab of hop rows (no [B, F, n_fft] frames tensor), and writes
-re^2 + im^2 straight to the output. Its design notes are in the source.
+power once, 4 * (B*T + B*F*n_freq) bytes; at the serving shape (B = 128 x
+7 s) that is 2.41e8 B, 0.072 ms at 3.35 TB/s, and a real FFT per frame needs
+only 2.5e9 FLOP (0.038 ms at 67 TFLOP/s f32). So the kernel
+(``csrc/power_spectrogram.cu``) moves nothing but those bytes through device
+memory: a block stages the slab of samples under its tile of frames in
+shared memory once (``cp.async``, zeros for the virtual pads), 64 threads
+transform each frame as a 512-point complex FFT of the packed, windowed
+samples (three radix-8 passes in registers, two exchanges through shared
+memory), untangle it to the 513 bins of the real transform, square, and
+write each bin once. Its design notes are in the source.
+
+The host side here builds the kernel's one table (window, twiddles, untangle
+factors: numpy float64, rounded to f32 once) and chooses each launch's tile
+and slab-copy width (:func:`launch_plan`).
 
 ``power_spectrogram_plain`` is the plain version: the CPU path runs it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
@@ -26,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -33,10 +40,17 @@ import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.kernels import build
 
-# tile sizes of csrc/power_spectrogram.cu (checked against the library)
-BLOCK_BINS = 64
-BLOCK_K = 32
+# layout of csrc/power_spectrogram.cu (checked against the library)
+N_FFT = 1024                      # the one size the kernel is built for
+FRAME_THREADS = 64                # threads per frame; 8 complex values each
+EX1_STRIDE = 72                   # float2 row stride of the first exchange
+EX2_STRIDE = 66                   # ... of the second
+BUF_FLOAT2 = 8 * EX1_STRIDE       # one exchange buffer
+# window | tw1 | tw2 | untangle, see fft_tables
+TABLE_FLOATS = N_FFT + N_FFT + 2 * 64 + 2 * (N_FFT // 4 + 1)
 MAX_SMEM_BYTES = 232448           # per block on sm_90 (227 KB)
+# (tile_frames, groups) from the largest tile down; see launch_plan
+TILE_LADDER = ((32, 4), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,19 +58,23 @@ def _library() -> ctypes.CDLL:
     """The kernel library (built at first use), its C signatures set."""
     lib = build.load("power_spectrogram")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tasr_power_spectrogram.argtypes = [p, p, p] + [i] * 9 + [p]
+    lib.tasr_power_spectrogram.argtypes = [p, p, p] + [i] * 8 + [p]
     lib.tasr_power_spectrogram.restype = i
-    lib.tasr_power_spectrogram_smem_bytes.argtypes = [i, i]
+    lib.tasr_power_spectrogram_smem_bytes.argtypes = [i, i, i]
     lib.tasr_power_spectrogram_smem_bytes.restype = ctypes.c_longlong
     lib.tasr_cuda_error_string.argtypes = [i]
     lib.tasr_cuda_error_string.restype = ctypes.c_char_p
-    for fn, want in (("tasr_power_spectrogram_block_bins", BLOCK_BINS),
-                     ("tasr_power_spectrogram_block_k", BLOCK_K)):
+    for fn, want in (("tasr_power_spectrogram_n_fft", N_FFT),
+                     ("tasr_power_spectrogram_table_floats", TABLE_FLOATS)):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
         if getattr(lib, fn)() != want:
             raise RuntimeError(f"{fn}() != {want}: library and wrapper "
-                               f"disagree on the tile size")
+                               f"disagree on the kernel's layout")
+    for args in ((160, 32, 4), (81, 2, 2)):
+        if lib.tasr_power_spectrogram_smem_bytes(*args) != smem_bytes(*args):
+            raise RuntimeError("library and wrapper disagree on the "
+                               "kernel's shared memory")
     return lib
 
 
@@ -81,24 +99,93 @@ def power_spectrogram_plain(wav: torch.Tensor, dft: torch.Tensor, hop: int,
     return re * re + im * im
 
 
-def tile_dft(padded_dft: np.ndarray, hop: int) -> np.ndarray:
-    """[C*hop, 2*n_freq] DFT (zero rows past n_fft) -> the kernel's operand
-    [C*hop_pad, 2, n_freq_pad]: hop rows padded to a multiple of BLOCK_K,
-    re and im split, bins padded to a multiple of BLOCK_BINS, zeros in
-    every pad."""
-    rows, cols = padded_dft.shape
-    n_chunks, n_freq = rows // hop, cols // 2
-    hop_pad = -(-hop // BLOCK_K) * BLOCK_K
-    n_freq_pad = -(-n_freq // BLOCK_BINS) * BLOCK_BINS
-    out = np.zeros((n_chunks, hop_pad, 2, n_freq_pad), np.float32)
-    out[:, :hop, :, :n_freq] = padded_dft.reshape(n_chunks, hop, 2, n_freq)
-    return out.reshape(n_chunks * hop_pad, 2, n_freq_pad)
+# ---------------------------------------------------------------------------
+# Host-built tables
+# ---------------------------------------------------------------------------
+
+def fft_tables(window: np.ndarray) -> Dict[str, np.ndarray]:
+    """The kernel's constants for a window of n_fft points, computed in
+    float64 and rounded to f32 once. Complex entries are (re, im) pairs.
+
+    - ``window`` [n_fft]: sample n of the frame is scaled by window[n]; the
+      complex FFT's input m is (xw[2m], xw[2m+1]).
+    - ``tw1`` [8, 64, 2]: e^{-2 pi i t k1 / M}, M = n_fft/2, after pass 1.
+    - ``tw2`` [8, 8, 2]: e^{-2 pi i t2 k2 / 64}, indexed [k2, t2], after
+      pass 2.
+    - ``untangle`` [M/2 + 1, 2]: u[k] = -i e^{-2 pi i k / n_fft}; with
+      A = Z[k] + conj Z[M-k], D = Z[k] - conj Z[M-k]: X[k] = (A + u D)/2,
+      X[M-k] = conj(A - u D)/2.
+    """
+    n_fft = int(window.shape[0])
+    if n_fft < 2 or n_fft & (n_fft - 1):
+        raise ValueError(f"the K1 kernel takes a power-of-two n_fft, got "
+                         f"{n_fft}")
+    if n_fft != N_FFT:
+        raise ValueError(f"the K1 kernel is built for n_fft {N_FFT} only, "
+                         f"got {n_fft}")
+    half = n_fft // 2
+
+    def pairs(z: np.ndarray) -> np.ndarray:
+        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+    k8 = np.arange(8, dtype=np.float64)[:, None]
+    tw1 = np.exp(-2j * np.pi * k8 * np.arange(half // 8)[None, :] / half)
+    tw2 = np.exp(-2j * np.pi * k8 * np.arange(8)[None, :] / 64.0)
+    ut = -1j * np.exp(-2j * np.pi * np.arange(half // 2 + 1) / n_fft)
+    return {"window": np.asarray(window, np.float64).astype(np.float32),
+            "tw1": pairs(tw1), "tw2": pairs(tw2), "untangle": pairs(ut)}
 
 
-def power_spectrogram_cuda(wav: torch.Tensor, kernel_dft: torch.Tensor,
-                           n_freq: int, hop: int, lo: int) -> torch.Tensor:
-    """Launch K1 on ``wav``'s current stream. ``kernel_dft`` is
-    :func:`tile_dft`'s operand on the same device."""
+def pack_tables(window: np.ndarray) -> np.ndarray:
+    """:func:`fft_tables` as the one flat f32 array the kernel reads:
+    window | tw1 | tw2 | untangle."""
+    tables = fft_tables(window)
+    flat = np.concatenate([tables[name].reshape(-1) for name in
+                           ("window", "tw1", "tw2", "untangle")])
+    assert flat.shape == (TABLE_FLOATS,)
+    return flat
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+
+class LaunchPlan(NamedTuple):
+    tile_frames: int      # consecutive frames one block owns
+    groups: int           # frames in flight per block (64 threads each)
+    vec16: bool           # 16-byte slab copies (else 4-byte)
+
+
+def smem_bytes(hop: int, tile_frames: int, groups: int) -> int:
+    slab = (tile_frames - 1) * hop + N_FFT
+    return -(-slab // 4) * 16 + groups * 2 * BUF_FLOAT2 * 8
+
+
+def launch_plan(batch: int, t: int, hop: int, lo: int, sm_count: int,
+                base_aligned: bool = True) -> LaunchPlan:
+    """Tile and copy width for one launch.
+
+    The tile is the largest of ``TILE_LADDER`` that fits shared memory and
+    still gives two blocks per SM, so that a single short request does not
+    run on a handful of blocks; failing that, one frame per 64-thread block.
+    16-byte copies need every slab start ``f0*hop - lo`` and the row stride
+    ``t`` to be multiples of 4 samples, and the base pointer 16-byte
+    aligned."""
+    n_frames = num_frames(t, hop)
+    fits = [(tile, groups) for tile, groups in TILE_LADDER
+            if smem_bytes(hop, tile, groups) <= MAX_SMEM_BYTES]
+    tile, groups = next(
+        ((tile, groups) for tile, groups in fits
+         if batch * num_frames(n_frames, tile) >= 2 * sm_count), fits[-1])
+    vec16 = (base_aligned and t % 4 == 0 and lo % 4 == 0
+             and (tile * hop) % 4 == 0)
+    return LaunchPlan(tile, groups, vec16)
+
+
+def power_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
+                           hop: int, lo: int) -> torch.Tensor:
+    """Launch K1 on ``wav``'s current stream. ``tables`` is
+    :func:`pack_tables`'s array on the same device."""
     if wav.device.type != "cuda":
         raise ValueError(f"power_spectrogram_cuda needs a CUDA tensor, got "
                          f"{wav.device}")
@@ -106,34 +193,28 @@ def power_spectrogram_cuda(wav: torch.Tensor, kernel_dft: torch.Tensor,
             or not wav.is_contiguous():
         raise ValueError(f"wav must be contiguous float32 [B, T], got "
                          f"{wav.dtype} {tuple(wav.shape)}")
-    if kernel_dft.device != wav.device or kernel_dft.dtype != torch.float32 \
-            or kernel_dft.dim() != 3 or not kernel_dft.is_contiguous():
-        raise ValueError("kernel_dft must be a contiguous float32 "
-                         "[C*hop_pad, 2, n_freq_pad] tensor on wav's device")
-    hop_pad = -(-hop // BLOCK_K) * BLOCK_K
-    rows, two, n_freq_pad = kernel_dft.shape
-    if two != 2 or rows % hop_pad or n_freq_pad % BLOCK_BINS \
-            or n_freq_pad < n_freq:
-        raise ValueError(f"kernel_dft shape {tuple(kernel_dft.shape)} does "
-                         f"not fit hop {hop} / n_freq {n_freq}")
-    n_chunks = rows // hop_pad
+    if tables.device != wav.device or tables.dtype != torch.float32 \
+            or tables.dim() != 1 or not tables.is_contiguous() \
+            or tables.shape[0] != TABLE_FLOATS:
+        raise ValueError(f"tables must be pack_tables()'s float32 "
+                         f"[{TABLE_FLOATS}] array on wav's device")
     b, t = wav.shape
-    if b == 0 or t == 0 or b > 65535:
-        raise ValueError(f"batch {b} x {t} samples is outside the kernel's "
-                         f"range (1..65535 rows, >= 1 sample)")
+    if b == 0 or t == 0 or hop <= 0 or lo < 0:
+        raise ValueError(f"batch {b} x {t} samples, hop {hop}, left pad {lo} "
+                         f"is outside the kernel's range")
     lib = _library()
-    smem = lib.tasr_power_spectrogram_smem_bytes(hop_pad, n_chunks)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"hop {hop} needs {smem} B of shared memory per "
-                         f"block (> {MAX_SMEM_BYTES})")
+    sm_count = torch.cuda.get_device_properties(wav.device)\
+        .multi_processor_count
+    plan = launch_plan(b, t, hop, lo, sm_count,
+                       base_aligned=wav.data_ptr() % 16 == 0)
     n_frames = num_frames(t, hop)
-    out = torch.empty((b, n_frames, n_freq), dtype=torch.float32,
+    out = torch.empty((b, n_frames, N_FFT // 2 + 1), dtype=torch.float32,
                       device=wav.device)
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
         rc = lib.tasr_power_spectrogram(
-            wav.data_ptr(), kernel_dft.data_ptr(), out.data_ptr(), b, t, hop,
-            hop_pad, n_chunks, lo, n_frames, n_freq, n_freq_pad, stream)
+            wav.data_ptr(), tables.data_ptr(), out.data_ptr(), b, t, hop, lo,
+            n_frames, plan.tile_frames, plan.groups, int(plan.vec16), stream)
     if rc != 0:
         raise RuntimeError(f"power_spectrogram kernel launch failed: "
                            f"{lib.tasr_cuda_error_string(rc).decode()}")
