@@ -4,16 +4,20 @@ from __future__ import annotations
 
 import argparse
 import logging
-from typing import Tuple
+from typing import Optional, Tuple
 
 from tensorflowasr_tpu_torch.utils.config import UserConfig
-from tensorflowasr_tpu_torch.utils.text import TextFeaturizer
+from tensorflowasr_tpu_torch.utils.text import (
+    PinyinConverter,
+    TextFeaturizer,
+    load_pinyin2phone,
+)
 
 
 def config_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--data_config", required=True,
-                   help="data YAML (speech/vocabulary config)")
+                   help="data YAML (speech/augments/running config)")
     p.add_argument("--model_config", required=True,
                    help="model YAML (model_config section)")
     p.add_argument("--compute_dtype", default="bfloat16",
@@ -25,6 +29,19 @@ def config_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_training_flags(p: argparse.ArgumentParser) -> None:
+    """The flags ``train_asr`` and ``eval_am`` share on top of
+    :func:`config_parser`."""
+    p.add_argument("--total_steps", type=int, default=10000)
+    p.add_argument("--data_workers", type=int, default=4,
+                   help="host threads for wav loading; batches are "
+                        "prefetched in the background when > 0")
+    p.add_argument("--data_procs", type=int, default=0,
+                   help="batch-producer PROCESSES, each owning a train-list "
+                        "shard; 0 = threads only. Not ported yet: any other "
+                        "value raises")
+
+
 def load_config(args) -> UserConfig:
     logging.basicConfig(
         level=getattr(logging, args.log_level.upper(), logging.INFO),
@@ -33,8 +50,50 @@ def load_config(args) -> UserConfig:
 
 
 def build_featurizers(config: UserConfig
-                      ) -> Tuple[TextFeaturizer, TextFeaturizer]:
-    """-> (phone featurizer, char featurizer)."""
+                      ) -> Tuple[TextFeaturizer, TextFeaturizer, dict,
+                                 Optional[PinyinConverter], bool]:
+    """-> (phone featurizer, char featurizer, pinyin2phone map,
+    pinyin converter, transcripts_are_pinyin)."""
     phone_f = TextFeaturizer(dict(config.section("inp_config").data))
     char_f = TextFeaturizer(dict(config.section("tar_config").data))
-    return phone_f, char_f
+    sc = config.section("speech_config")
+    p2p_path = sc["pinyin_map"]
+    p2p = load_pinyin2phone(p2p_path) if p2p_path else {}
+    transcripts_are_pinyin = bool(sc["transcripts_are_pinyin"])
+    pin = None
+    if not transcripts_are_pinyin:
+        pin = PinyinConverter(lexicon_path=sc["pinyin_lexicon"])
+        if not pin.available:
+            logging.warning(
+                "no hanzi->pinyin backend (install pypinyin or set "
+                "speech_config.pinyin_lexicon); assuming transcripts are "
+                "already space-separated pinyin")
+            transcripts_are_pinyin = True
+            pin = None
+    return phone_f, char_f, p2p, pin, transcripts_are_pinyin
+
+
+def offline_ctc_setup(args, config: UserConfig):
+    """What ``train_asr`` and ``eval_am`` share: refuse what is not ported,
+    then build the dataloader and the trainer (with fresh random weights)
+    from the config. -> (dataloader, trainer, char featurizer)."""
+    from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+
+    name = config.section("model_config")["name"] or "OfflineConformerCTC"
+    if name == "ChunkConformer":
+        raise NotImplementedError(
+            "model_config.name ChunkConformer (the chunk trainer) is not "
+            "ported yet")
+    if args.data_procs > 0:
+        raise NotImplementedError(
+            "--data_procs > 0 (process workers, data/mp_prefetch.py) is "
+            "not ported yet; use --data_workers threads")
+    phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
+    dl = AMDataLoader(config, phone_f, char_f, pinyin2phone=p2p, pinyin=pin,
+                      transcripts_are_pinyin=pinyin_txt)
+    trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                         blank_id=phone_f.blank, device=args.device,
+                         compute_dtype=args.compute_dtype)
+    trainer.init_state()
+    return dl, trainer, char_f

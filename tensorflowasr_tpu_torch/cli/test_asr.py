@@ -48,7 +48,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     config = load_config(args)
     device = resolve_device(args.device)
-    phone_f, char_f = build_featurizers(config)
+    phone_f, char_f = build_featurizers(config)[:2]
 
     sf = SpeechFeaturizer(config["speech_config"] or {})
     wav = sf.load_wav(args.wav)

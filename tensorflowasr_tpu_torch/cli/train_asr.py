@@ -1,0 +1,45 @@
+"""ASR training CLI for the offline Conformer-CTC family.
+
+    python -m tensorflowasr_tpu_torch.cli.train_asr --data_config D.yml \\
+        --model_config M.yml [--total_steps N] [--data_workers N] \\
+        [--device cuda|cpu] [--compute_dtype float32|bfloat16]
+
+Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: resumes from the
+newest checkpoint under ``running_config.outdir``/checkpoints when there is
+one, trains ``--total_steps`` steps, logs to ``metrics.jsonl`` and saves at
+the configured intervals. ``model_config.name: ChunkConformer`` and
+``--data_procs`` > 0 are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from tensorflowasr_tpu_torch.cli.common import (
+    add_training_flags,
+    config_parser,
+    load_config,
+    offline_ctc_setup,
+)
+
+
+def main(argv=None) -> int:
+    parser = config_parser(__doc__)
+    add_training_flags(parser)
+    args = parser.parse_args(argv)
+    config = load_config(args)
+    dl, trainer, _ = offline_ctc_setup(args, config)
+    trainer.restore()
+    train_iter = dl.generator(train=True, num_workers=args.data_workers,
+                              prefetch_depth=2 if args.data_workers else 0)
+    try:
+        trainer.fit(train_iter, eval_iter=dl.generator(train=False),
+                    total_steps=args.total_steps)
+    finally:
+        if hasattr(train_iter, "close"):
+            train_iter.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

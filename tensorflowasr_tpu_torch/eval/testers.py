@@ -1,0 +1,85 @@
+"""Evaluation harness: phone and char SER / CER with S/I/D breakdowns.
+
+Counterpart of ``AMTester`` in ``tensorflowasr_tpu/eval/testers.py``: drives
+the trainer's predict step over an eval iterator and accumulates streaming
+metrics on the host.
+
+    tester.run(batch_iter, max_batches) -> dict of final metrics
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from tensorflowasr_tpu_torch.utils.metrics import ErrorRateAccumulator
+
+logger = logging.getLogger(__name__)
+
+
+def _trim_pad(ids: np.ndarray, length: int) -> list:
+    return list(ids[:length])
+
+
+class AMTester:
+    """Offline ConformerCTC eval: phone SER/CER from greedy CTC + char
+    SER/CER from the translator."""
+
+    def __init__(self, trainer, log_every: int = 20,
+                 char_end_id: Optional[int] = None):
+        self.trainer = trainer
+        self.log_every = log_every
+        self.char_end_id = char_end_id
+        self.phone_acc = ErrorRateAccumulator("cer")
+        self.char_acc = ErrorRateAccumulator("cer")
+
+    def run(self, batch_iter: Iterable[Dict[str, np.ndarray]],
+            max_batches: Optional[int] = None) -> dict:
+        self.phone_acc.reset()
+        self.char_acc.reset()
+        device = self.trainer.device
+        for step, batch in enumerate(batch_iter):
+            if max_batches is not None and step >= max_batches:
+                break
+            wav = torch.from_numpy(np.asarray(batch["wav"])).to(device)
+            in_len = torch.from_numpy(
+                np.asarray(batch["input_length"])).to(device)
+            phone_ids, phone_lens, char_ids = self.trainer.predict_step(
+                self.trainer.state, wav, in_len)
+            phone_ids = phone_ids.cpu().numpy()
+            phone_lens = phone_lens.cpu().numpy()
+            char_ids = char_ids.cpu().numpy()
+            for i in range(wav.shape[0]):
+                ref_p = _trim_pad(batch["phones"][i],
+                                  int(batch["phone_length"][i]))
+                hyp_p = _trim_pad(phone_ids[i], int(phone_lens[i]))
+                self.phone_acc.update(ref_p, hyp_p)
+                # the end id is stripped from BOTH sides: references carry
+                # </S> but the translator hypothesis stops AT it, and
+                # counting it would score one deletion per utterance
+                ref_c = [v for v in _trim_pad(batch["chars"][i],
+                                              int(batch["char_length"][i]))
+                         if v != self.char_end_id]
+                hyp_c = self._trim_chars(char_ids[i])
+                self.char_acc.update(ref_c, hyp_c)
+            if (step + 1) % self.log_every == 0:
+                logger.info("eval step %d: %s", step + 1, self.result())
+        return self.result()
+
+    def _trim_chars(self, ids: np.ndarray) -> list:
+        """Stop at the first pad (0) or the </S> end id when configured."""
+        out = []
+        for v in ids:
+            if v == 0 or (self.char_end_id is not None
+                          and v == self.char_end_id):
+                break
+            out.append(int(v))
+        return out
+
+    def result(self) -> dict:
+        return {**{f"phone_{k}": v for k, v in
+                   self.phone_acc.result().items()},
+                **{f"char_{k}": v for k, v in self.char_acc.result().items()}}

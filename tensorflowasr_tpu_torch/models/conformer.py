@@ -1,4 +1,4 @@
-"""Offline Conformer-CTC model (inference).
+"""Offline Conformer-CTC model (inference and training).
 
 Counterpart of ``tensorflowasr_tpu/models/conformer.py``:
 
@@ -9,6 +9,11 @@ Counterpart of ``tensorflowasr_tpu/models/conformer.py``:
 - Translator        phone embedding -> N x RBlock (cross-attention with PE)
                     -> Dense(char classes) in f32
 - ConformerCTC      bundle with ``encode`` / ``ctc_logits`` / ``translate``
+                    and the trainer's ``train_forward``
+
+In training mode (``model.train()``) dropout, batch-statistics BatchNorm and
+(with ``spec_augment``) SpecAugment on the log-mel are active; their random
+draws come from the generator handed over with ``layers.set_generator``.
 
 The block-streaming encoder, the LEAF frontend and ``add_wav_info`` are not
 ported yet and raise. Weights come from ``models/convert.py`` (flax
@@ -18,13 +23,15 @@ variables) or from :func:`build_model`'s seeded random init.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tensorflowasr_tpu_torch.models.layers import (
+    BatchNorm,
     ConformerBlock,
     ConvSubsampling,
     Dense,
@@ -32,6 +39,8 @@ from tensorflowasr_tpu_torch.models.layers import (
     init_weights_,
 )
 from tensorflowasr_tpu_torch.ops import frontend as fe
+from tensorflowasr_tpu_torch.ops.ctc import collapse_and_remove_blank
+from tensorflowasr_tpu_torch.ops.specaug import spec_augment
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 N_FFT = 1024
@@ -42,7 +51,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclasses.dataclass(frozen=True)
 class ConformerConfig:
     """The conformerS.yml ``model_config`` plus the ``speech_config``
-    fields the model needs (the serving subset of the JAX config)."""
+    fields the model needs."""
 
     # encoder
     dmodel: int = 144
@@ -52,14 +61,17 @@ class ConformerConfig:
     num_heads: int = 4
     kernel_size: int = 32
     fc_factor: float = 0.5
+    dropout: float = 0.1
     # ctc decoder
     ctcdecoder_num_blocks: int = 1
     ctcdecoder_kernel_size: int = 32
     ctcdecoder_fc_factor: float = 0.5
+    ctcdecoder_dropout: float = 0.1
     # translator
     translator_num_blocks: int = 2
     translator_kernel_size: int = 32
     translator_fc_factor: float = 0.5
+    translator_dropout: float = 0.1
     # frontend / speech
     sample_rate: int = 16000
     n_mels: int = 80
@@ -67,9 +79,24 @@ class ConformerConfig:
     mel_layer_type: str = "Melspectrogram"   # Melspectrogram | Spectrogram
     mel_layer_trainable: bool = False
     add_wav_info: bool = False
+    # SpecAugment on the log-mel, on the device (training mode only)
+    spec_augment: bool = False
+    specaug_freq_masks: int = 2
+    specaug_freq_width: int = 27
+    specaug_time_masks: int = 2
+    specaug_time_ratio: float = 0.05
     streaming: bool = False
     # compute
     dtype_str: str = "float32"               # compute dtype for matmuls
+    # scan_layers / scan_unroll choose how the JAX package traces its
+    # encoder stack for the XLA compiler. Eager PyTorch compiles nothing,
+    # so both are read (the shipped YAMLs may set them) and change nothing:
+    # the blocks are always ``encoder.blocks.{i}``.
+    scan_layers: bool = False
+    scan_unroll: int = 1
+    # recompute each encoder block's activations in the backward pass
+    # (``torch.utils.checkpoint``) instead of storing them
+    remat_blocks: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -96,20 +123,31 @@ class ConformerConfig:
             num_heads=g(mc, "num_heads", 4),
             kernel_size=g(mc, "kernel_size", 32),
             fc_factor=g(mc, "fc_factor", 0.5),
+            dropout=g(mc, "dropout", 0.1),
             ctcdecoder_num_blocks=g(mc, "ctcdecoder_num_blocks", 1),
             ctcdecoder_kernel_size=g(mc, "ctcdecoder_kernel_size", 32),
             ctcdecoder_fc_factor=g(mc, "ctcdecoder_fc_factor", 0.5),
+            ctcdecoder_dropout=g(mc, "ctcdecoder_dropout", 0.1),
             translator_num_blocks=g(mc, "translator_num_blocks", 2),
             translator_kernel_size=g(mc, "translator_kernel_size", 32),
             translator_fc_factor=g(mc, "translator_fc_factor", 0.5),
+            translator_dropout=g(mc, "translator_dropout", 0.1),
             sample_rate=g(sc, "sample_rate", 16000),
             n_mels=g(sc, "num_feature_bins", 80),
             stride_ms=g(sc, "stride_ms", 10),
             mel_layer_type=g(sc, "mel_layer_type", "Melspectrogram"),
             mel_layer_trainable=g(sc, "mel_layer_trainable", False),
             add_wav_info=g(sc, "add_wav_info", False),
+            spec_augment=g(sc, "spec_augment", False),
+            specaug_freq_masks=g(sc, "specaug_freq_masks", 2),
+            specaug_freq_width=g(sc, "specaug_freq_width", 27),
+            specaug_time_masks=g(sc, "specaug_time_masks", 2),
+            specaug_time_ratio=g(sc, "specaug_time_ratio", 0.05),
             streaming=g(sc, "streaming", False),
             dtype_str=dtype_str,
+            scan_layers=g(mc, "scan_layers", False),
+            scan_unroll=g(mc, "scan_unroll", 1),
+            remat_blocks=g(mc, "remat_blocks", False),
         )
 
 
@@ -146,6 +184,36 @@ class MelFrontend(nn.Module):
                                       mel_weights=self.freq2mel)
 
 
+def _remat(block: nn.Module, x: torch.Tensor,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x)`` whose activations are recomputed in the backward pass.
+    The recomputation replays the generator from the state it had at the
+    first run, so it draws the same dropout masks, and leaves the BatchNorm
+    running statistics alone, which the first run already moved."""
+    start = None if generator is None else generator.get_state()
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    first = [True]
+
+    def run(x):
+        if first[0]:
+            first[0] = False
+            return block(x)
+        now = None if generator is None else generator.get_state()
+        for m in norms:
+            m.track_stats = False
+        try:
+            if generator is not None:
+                generator.set_state(start)
+            return block(x)
+        finally:
+            for m in norms:
+                m.track_stats = True
+            if generator is not None:
+                generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class ConformerEncoder(nn.Module):
     """wav [B, T(,1)] -> [B, ceil(ceil(T/hop)/rf), dmodel] f32."""
 
@@ -153,20 +221,34 @@ class ConformerEncoder(nn.Module):
         super().__init__()
         if cfg.add_wav_info:
             raise NotImplementedError("add_wav_info is not ported yet")
+        self.cfg = cfg
+        self.generator: Optional[torch.Generator] = None   # SpecAugment
         self.mel_layer = MelFrontend(cfg)
         self.conv_subsampling = ConvSubsampling(
             cfg.dmodel, self.mel_layer.out_features, cfg.reduction_factor,
-            cfg.dtype)
+            cfg.dropout, cfg.dtype)
         self.blocks = nn.ModuleList([
-            ConformerBlock(cfg.dmodel, cfg.fc_factor, cfg.head_size,
-                           cfg.num_heads, cfg.kernel_size, cfg.dtype)
+            ConformerBlock(cfg.dmodel, cfg.dropout, cfg.fc_factor,
+                           cfg.head_size, cfg.num_heads, cfg.kernel_size,
+                           cfg.dtype)
             for _ in range(cfg.num_blocks)])
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
         mel = self.mel_layer(fe.wav_to_float(wav))
+        if self.training and c.spec_augment:
+            if self.generator is None:
+                raise RuntimeError("training-mode SpecAugment needs a "
+                                   "generator: call set_generator first")
+            mel = spec_augment(
+                mel, self.generator, n_freq_masks=c.specaug_freq_masks,
+                freq_width=c.specaug_freq_width,
+                n_time_masks=c.specaug_time_masks,
+                time_ratio=c.specaug_time_ratio)
         x = self.conv_subsampling(mel[..., None])
+        remat = c.remat_blocks and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = _remat(block, x, self.generator) if remat else block(x)
         return x.to(torch.float32)
 
 
@@ -177,9 +259,10 @@ class CTCDecoder(nn.Module):
         super().__init__()
         self.project = Dense(cfg.dmodel, cfg.dmodel, cfg.dtype)
         self.blocks = nn.ModuleList([
-            ConformerBlock(cfg.dmodel, cfg.ctcdecoder_fc_factor,
-                           cfg.head_size, cfg.num_heads,
-                           cfg.ctcdecoder_kernel_size, cfg.dtype)
+            ConformerBlock(cfg.dmodel, cfg.ctcdecoder_dropout,
+                           cfg.ctcdecoder_fc_factor, cfg.head_size,
+                           cfg.num_heads, cfg.ctcdecoder_kernel_size,
+                           cfg.dtype)
             for _ in range(cfg.ctcdecoder_num_blocks)])
         self.fully_connected = Dense(cfg.dmodel, num_classes, torch.float32)
 
@@ -200,8 +283,9 @@ class Translator(nn.Module):
         self.compute_dtype = cfg.dtype
         self.inp_embedding = nn.Embedding(inp_classes, cfg.dmodel)
         self.blocks = nn.ModuleList([
-            RBlock(cfg.dmodel, cfg.translator_fc_factor, cfg.head_size,
-                   cfg.num_heads, cfg.translator_kernel_size, cfg.dtype)
+            RBlock(cfg.dmodel, cfg.translator_dropout,
+                   cfg.translator_fc_factor, cfg.head_size, cfg.num_heads,
+                   cfg.translator_kernel_size, cfg.dtype)
             for _ in range(cfg.translator_num_blocks)])
         self.fully_connected = Dense(cfg.dmodel, tar_classes, torch.float32)
 
@@ -222,6 +306,7 @@ class ConformerCTC(nn.Module):
     - ``encode(wav)``             -> enc [B, T', dmodel] f32
     - ``ctc_logits(enc)``         -> phone logits [B, T', n_phone] f32
     - ``translate(ids, enc)``     -> char logits [B, U, n_char] f32
+    - ``train_forward(wav, phones, input_length)`` -> the trainer's forward
     """
 
     def __init__(self, cfg: ConformerConfig, num_phone_classes: int,
@@ -242,6 +327,23 @@ class ConformerCTC(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         enc = self.encode(wav)
         return enc, self.ctc_logits(enc), self.translate(phone_ids, enc)
+
+    def train_forward(self, wav: torch.Tensor, phones: torch.Tensor,
+                      input_length: torch.Tensor):
+        """The CTC train step's forward: encoder -> CTC logits -> greedy
+        decode of the detached logits -> translator on the ground-truth
+        phones (+ 5 zero pads) and on the decoded ids, which keep their
+        static [B, T'] shape. Returns (enc, ctc_logits, decoded, label_out
+        [B, L + 5, n_char], ctc_out [B, T', n_char])."""
+        blank_id = self.num_phone_classes - 1
+        enc = self.encoder(wav)
+        ctc_logits = self.ctc_decoder(enc)
+        ids = torch.argmax(ctc_logits.detach().to(torch.float32), dim=-1)
+        decoded, _ = collapse_and_remove_blank(ids.to(torch.int32),
+                                               input_length, blank_id)
+        label_out = self.translator(F.pad(phones, (0, 5)), enc)
+        ctc_out = self.translator(decoded, enc)
+        return enc, ctc_logits, decoded, label_out, ctc_out
 
     def encode(self, wav: torch.Tensor) -> torch.Tensor:
         return self.encoder(wav)

@@ -1,4 +1,5 @@
-"""Weight bridge: flax ``ConformerCTC`` variables -> torch ``state_dict``.
+"""Weight bridge between flax ``ConformerCTC`` variables and the torch
+``state_dict``, both ways.
 
 The flax tree ``{"params": ..., "batch_stats": ...}`` arrives as nested
 dicts of numpy arrays (or flattened to ``params/encoder/.../kernel`` names,
@@ -20,6 +21,13 @@ Layout changes, by leaf:
 
 Every produced key must exist in the torch model and every model key must
 be produced, with matching shapes; anything else raises.
+
+A flax gradient tree has the layout of ``params``, so
+``to_torch_names(flatten({"params": grads}))`` names each gradient leaf after
+the torch parameter it belongs to. :func:`to_flax_names` is the inverse map
+(a port-trained model back to the flattened flax layout), and
+:func:`save_npz` writes it as the ``.npz`` that :func:`load_npz` and the JAX
+package read.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from tensorflowasr_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerCTC,
 )
+from tensorflowasr_tpu_torch.models.layers import MultiHeadAttention
 
 _SCAN = "encoder/conformer_blocks/scan/block/"
 _BLOCK = re.compile(r"(?:decoder_)?conformer_block_(\d+)$")
@@ -105,7 +114,7 @@ def to_torch_names(flat: Mapping[str, np.ndarray]
         key = ".".join(modules + [leaf])
         if key in state:
             raise KeyError(f"{name} maps onto {key} twice")
-        state[key] = torch.from_numpy(np.ascontiguousarray(value))
+        state[key] = torch.from_numpy(np.array(value))
     return state
 
 
@@ -131,6 +140,85 @@ def load_npz(path: str, cfg: ConformerConfig) -> Dict[str, torch.Tensor]:
     """A ``.npz`` of flattened flax variables -> a strict state_dict."""
     with np.load(path) as data:
         return convert_flat({k: data[k] for k in data.files}, cfg)
+
+
+def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
+                 heads: Dict[str, tuple]):
+    """(torch module path, torch leaf name, array) -> (collection, flax
+    leaf name, array): :func:`_convert_leaf` backwards. ``heads`` maps each
+    attention module's path to (num_heads, head_size)."""
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", leaf[len("running_"):], arr
+    if leaf == "freq2mel":
+        return "params", leaf, arr
+    parent, _, name = module_path.rpartition(".")
+    if parent in heads and name in ("query", "key", "value", "out"):
+        h, hd = heads[parent]
+        if leaf == "bias":
+            return "params", "bias", arr if name == "out" \
+                else arr.reshape(h, hd)
+        if name == "out":                                   # [d, h*hd]
+            return "params", "kernel", arr.T.reshape(h, hd, -1)
+        return "params", "kernel", arr.T.reshape(-1, h, hd)
+    if leaf == "bias":
+        return "params", "bias", arr
+    if name == "inp_embedding":
+        return "params", "embedding", arr
+    if arr.ndim == 1:                                       # norm scale
+        return "params", "scale", arr
+    if arr.ndim == 2:                                       # Dense
+        return "params", "kernel", arr.T
+    if arr.ndim == 4:                                       # Conv OIHW
+        return "params", "kernel", arr.transpose(2, 3, 1, 0)
+    if arr.ndim == 3 and arr.shape[1] == 1:                 # depthwise
+        return "params", "kernel", arr.transpose(2, 1, 0)
+    raise KeyError(f"unknown weight layout at {module_path}.{leaf} "
+                   f"{arr.shape}")
+
+
+def to_flax_names(model: ConformerCTC, scan_layers: bool = False
+                  ) -> Dict[str, np.ndarray]:
+    """A torch ``ConformerCTC`` -> its flattened flax variables
+    (``params/...`` and ``batch_stats/...`` names, f32 numpy). With
+    ``scan_layers`` the encoder blocks are stacked on axis 0 under
+    ``conformer_blocks/scan/block``, the layout a JAX model built with
+    ``scan_layers: true`` reads."""
+    heads = {name: (m.num_heads, m.head_size)
+             for name, m in model.named_modules()
+             if isinstance(m, MultiHeadAttention)}
+    flat: Dict[str, np.ndarray] = {}
+    for key, tensor in model.state_dict().items():
+        module_path, _, leaf = key.rpartition(".")
+        coll, flax_leaf, arr = _invert_leaf(
+            module_path, leaf, tensor.detach().cpu().float().numpy(), heads)
+        parts = module_path.split(".")
+        prefix = "" if parts[0] == "encoder" else "decoder_"
+        path = re.sub(r"blocks/(\d+)", prefix + r"conformer_block_\1",
+                      "/".join(parts))
+        flat[f"{coll}/{path}/{flax_leaf}"] = np.ascontiguousarray(arr)
+    if not scan_layers:
+        return flat
+    stacked: Dict[str, list] = {}
+    out: Dict[str, np.ndarray] = {}
+    block = re.compile(r"^(\w+)/encoder/conformer_block_(\d+)/(.+)$")
+    for name, arr in flat.items():
+        m = block.match(name)
+        if m:
+            stacked.setdefault(f"{m.group(1)}/{_SCAN}{m.group(3)}",
+                               []).append((int(m.group(2)), arr))
+        else:
+            out[name] = arr
+    for name, items in stacked.items():
+        out[name] = np.stack([a for _, a in sorted(items,
+                                                   key=lambda it: it[0])])
+    return out
+
+
+def save_npz(model: ConformerCTC, path: str, scan_layers: bool = False
+             ) -> None:
+    """Write ``model``'s weights as the ``.npz`` of flattened flax variables
+    that :func:`load_npz` reads back and the JAX package can unflatten."""
+    np.savez(path, **to_flax_names(model, scan_layers))
 
 
 def num_classes(state: Mapping[str, torch.Tensor]):

@@ -1,4 +1,4 @@
-"""Conformer building blocks as ``nn.Module``s (inference semantics).
+"""Conformer building blocks as ``nn.Module``s.
 
 Counterpart of ``tensorflowasr_tpu/models/layers.py``. Submodule names
 follow the flax names, so ``models/convert.py`` maps one tree onto the
@@ -13,9 +13,10 @@ other name by name. Traps kept on purpose:
 - dtype policy: matmuls and convs in the compute dtype (f32 or bf16) with
   f32 parameters cast per call, LayerNorm and BatchNorm in f32.
 
-Dropout is not applied (inference only) and BatchNorm reads its running
-statistics; a module left in training mode raises. Training comes with a
-later slice.
+Training mode (``module.train()``) turns on dropout at every place the flax
+modules have one and makes BatchNorm use (and record) batch statistics.
+Every dropout mask is drawn from an explicit ``torch.Generator`` handed over
+with :func:`set_generator`; nothing reads the global RNG.
 """
 
 from __future__ import annotations
@@ -71,9 +72,55 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.to(torch.float32))
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode zeroes each value with
+    probability ``rate`` and scales the kept ones by 1 / (1 - rate); the
+    identity in eval mode or at rate 0. The mask comes from ``generator``
+    (see :func:`set_generator`), which must live on the input's device."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "training-mode dropout needs a generator: call "
+                "set_generator(model, torch.Generator(device=...)) first")
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.rate
+        return x * keep.to(x.dtype) / (1.0 - self.rate)
+
+
+def set_generator(model: nn.Module, generator: Optional[torch.Generator]
+                  ) -> None:
+    """Hand ``generator`` to every module of ``model`` that draws random
+    numbers (each :class:`Dropout`, and the encoder for SpecAugment)."""
+    for m in model.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+
+
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_running_average=True, epsilon=1e-3)`` over
-    the last axis, in f32."""
+    """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` over the last
+    axis, in f32.
+
+    Eval mode normalizes with the running statistics. Training mode
+    normalizes with the batch statistics over every leading axis (padded
+    frames count, there is no length mask), with the variance flax computes,
+    ``max(E[x^2] - E[x]^2, 0)`` (biased); the gradient flows through the
+    statistics. The running statistics then move by a factor 0.01 toward
+    the batch mean and that same biased variance, unless ``track_stats`` is
+    off (a recomputed forward under ``remat_blocks`` must not count twice).
+    ``torch.nn.functional.batch_norm`` is not used: it records the unbiased
+    variance."""
+
+    MOMENTUM = 0.99
 
     def __init__(self, dim: int):
         super().__init__()
@@ -81,13 +128,22 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
+        self.track_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
-        mul = torch.rsqrt(self.running_var + NORM_EPS) * self.weight
-        return (x.to(torch.float32) - self.running_mean) * mul + self.bias
+        x = x.to(torch.float32)
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            if self.track_stats:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)
+                    self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+        mul = torch.rsqrt(var + NORM_EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class DepthwiseConv1D(nn.Module):
@@ -117,7 +173,7 @@ class ConvSubsampling(nn.Module):
     dims merge (freq major) into a Dense projection."""
 
     def __init__(self, odim: int, in_freq: int, reduction_factor: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if reduction_factor % 2:
             raise ValueError(f"reduction_factor must be even, got "
@@ -128,6 +184,7 @@ class ConvSubsampling(nn.Module):
         self.conv2 = nn.Conv2d(odim, odim, 3, stride=self.strides[1])
         f_out = -(-(-(-in_freq // 2)) // 2)
         self.linear = Dense(f_out * odim, odim, dtype)
+        self.dropout = Dropout(dropout)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor, stride) -> torch.Tensor:
         dt = self.compute_dtype
@@ -143,20 +200,22 @@ class ConvSubsampling(nn.Module):
         x = self._conv(self.conv2, x, self.strides[1])
         b, c, t, f = x.shape
         x = x.permute(0, 2, 3, 1).reshape(b, t, f * c)      # f major, c minor
-        return self.linear(x)
+        return self.dropout(self.linear(x))
 
 
 class FFModule(nn.Module):
-    def __init__(self, input_dim: int, fc_factor: float = 0.5,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, input_dim: int, dropout: float = 0.0,
+                 fc_factor: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc_factor = fc_factor
         self.ln = LayerNorm(input_dim)
         self.ffn1 = Dense(input_dim, 4 * input_dim, dtype)
         self.ffn2 = Dense(4 * input_dim, input_dim, dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.ffn2(F.silu(self.ffn1(self.ln(x))))
+        y = self.dropout(F.silu(self.ffn1(self.ln(x))))
+        y = self.dropout(self.ffn2(y))
         return x + self.fc_factor * y
 
 
@@ -197,15 +256,16 @@ class MHSAModule(nn.Module):
     """LN -> self-attention (no mask, no positional encoding) -> residual."""
 
     def __init__(self, input_dim: int, head_size: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln = LayerNorm(input_dim)
         self.mha = MultiHeadAttention(input_dim, num_heads, head_size,
                                       input_dim, dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.ln(x)
-        return x + self.mha(y, y)
+        return x + self.dropout(self.mha(y, y))
 
 
 class ConvModule(nn.Module):
@@ -213,7 +273,7 @@ class ConvModule(nn.Module):
     -> residual."""
 
     def __init__(self, input_dim: int, kernel_size: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln = LayerNorm(input_dim)
         self.pw_conv_1 = Dense(input_dim, 2 * input_dim, dtype)
@@ -221,24 +281,27 @@ class ConvModule(nn.Module):
         self.dw_pw = Dense(input_dim, 2 * input_dim, dtype)
         self.bn = BatchNorm(2 * input_dim)
         self.pw_conv_2 = Dense(2 * input_dim, input_dim, dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = glu(self.pw_conv_1(self.ln(x)))
         y = self.bn(self.dw_pw(self.dw_conv(y)))
-        return x + self.pw_conv_2(F.silu(y))
+        return x + self.dropout(self.pw_conv_2(F.silu(y)))
 
 
 class ConformerBlock(nn.Module):
     """FF/2 -> MHSA -> Conv -> FF/2 -> LN."""
 
-    def __init__(self, input_dim: int, fc_factor: float = 0.5,
-                 head_size: int = 36, num_heads: int = 4,
-                 kernel_size: int = 32, dtype: torch.dtype = torch.float32):
+    def __init__(self, input_dim: int, dropout: float = 0.0,
+                 fc_factor: float = 0.5, head_size: int = 36,
+                 num_heads: int = 4, kernel_size: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ff_module_1 = FFModule(input_dim, fc_factor, dtype)
-        self.mhsa = MHSAModule(input_dim, head_size, num_heads, dtype)
-        self.conv_module = ConvModule(input_dim, kernel_size, dtype)
-        self.ff_module_2 = FFModule(input_dim, fc_factor, dtype)
+        self.ff_module_1 = FFModule(input_dim, dropout, fc_factor, dtype)
+        self.mhsa = MHSAModule(input_dim, head_size, num_heads, dropout,
+                               dtype)
+        self.conv_module = ConvModule(input_dim, kernel_size, dropout, dtype)
+        self.ff_module_2 = FFModule(input_dim, dropout, fc_factor, dtype)
         self.ln = LayerNorm(input_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -271,28 +334,31 @@ class RMHSAModule(nn.Module):
     residual adds to the un-PE'd x."""
 
     def __init__(self, input_dim: int, head_size: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln = LayerNorm(input_dim)
         self.mha = MultiHeadAttention(input_dim, num_heads, head_size,
                                       input_dim, dtype)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
         pe = _pe_table(x.shape[1], x.shape[2], x.device).to(x.dtype)
-        return x + self.mha(self.ln(x + pe), enc)
+        return x + self.dropout(self.mha(self.ln(x + pe), enc))
 
 
 class RBlock(nn.Module):
     """Translator block: FF/2 -> cross-MHSA -> Conv -> FF/2 -> LN."""
 
-    def __init__(self, input_dim: int, fc_factor: float = 0.5,
-                 head_size: int = 36, num_heads: int = 4,
-                 kernel_size: int = 32, dtype: torch.dtype = torch.float32):
+    def __init__(self, input_dim: int, dropout: float = 0.0,
+                 fc_factor: float = 0.5, head_size: int = 36,
+                 num_heads: int = 4, kernel_size: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ff_module_1 = FFModule(input_dim, fc_factor, dtype)
-        self.rmhsa = RMHSAModule(input_dim, head_size, num_heads, dtype)
-        self.conv_module = ConvModule(input_dim, kernel_size, dtype)
-        self.ff_module_2 = FFModule(input_dim, fc_factor, dtype)
+        self.ff_module_1 = FFModule(input_dim, dropout, fc_factor, dtype)
+        self.rmhsa = RMHSAModule(input_dim, head_size, num_heads, dropout,
+                                 dtype)
+        self.conv_module = ConvModule(input_dim, kernel_size, dropout, dtype)
+        self.ff_module_2 = FFModule(input_dim, dropout, fc_factor, dtype)
         self.ln = LayerNorm(input_dim)
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:

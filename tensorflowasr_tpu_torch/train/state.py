@@ -1,0 +1,144 @@
+"""Train state and optimizer / schedule factories.
+
+Counterpart of ``tensorflowasr_tpu/train/state.py``. The recipe is plain
+Adam(lr=1e-4, b1=0.9, b2=0.98, eps=1e-6) (``optimizer_config`` in
+``configs/am_data.yml``); the transformer warmup schedule is available via
+``use_warmup``. :class:`Optimizer` wraps ``torch.optim.Adam`` with what the
+JAX package composes from optax: a schedule read at each update, optional
+clipping by the global norm, and ``grad_accum_steps`` k with the semantics
+of ``optax.MultiSteps`` (the MEAN of k micro-gradients, one update every
+k-th call, clipping acts on the mean).
+
+The full state (model with its BatchNorm buffers, optimizer, step, the
+generator that dropout draws from) is one object, checkpointed as one file.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Union
+
+import torch
+from torch import nn
+
+
+def transformer_schedule(dmodel: int, warmup_steps: int = 10000,
+                         peak_scale: float = 1.0) -> Callable[[int], float]:
+    """lr = d^-0.5 * min(step^-0.5, step * warmup^-1.5), with step =
+    max(count, 1): the count of updates made so far starts at 0, so the
+    first two updates share one rate."""
+
+    def schedule(count: int) -> float:
+        step = max(float(count), 1.0)
+        return peak_scale * dmodel ** -0.5 * min(
+            step ** -0.5, step * warmup_steps ** -1.5)
+
+    return schedule
+
+
+class Optimizer:
+    """Adam with a schedule, global-norm clipping and gradient accumulation.
+
+    Call :meth:`step` once after every backward pass. Gradients add up in
+    ``param.grad`` over ``accum_steps`` calls; the last of them divides by
+    the count, clips, sets the rate from the schedule (read at the number of
+    updates made so far), updates and clears the gradients. Nothing here
+    reads a value back from the device.
+    """
+
+    def __init__(self, params, lr: Union[float, Callable[[int], float]],
+                 b1: float = 0.9, b2: float = 0.98, eps: float = 1e-6,
+                 grad_clip_norm: Optional[float] = None,
+                 accum_steps: int = 1):
+        self.params = [p for p in params if p.requires_grad]
+        self.schedule = lr if callable(lr) else None
+        self.adam = torch.optim.Adam(
+            self.params, lr=0.0 if callable(lr) else float(lr),
+            betas=(b1, b2), eps=eps)
+        self.grad_clip_norm = grad_clip_norm
+        self.accum_steps = int(accum_steps)
+        self.count = 0          # updates made
+        self.mini_step = 0      # backward passes since the last update
+
+    def step(self) -> bool:
+        """Returns whether this call updated the parameters."""
+        self.mini_step += 1
+        if self.mini_step < self.accum_steps:
+            return False
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.accum_steps > 1:
+            torch._foreach_div_(grads, float(self.accum_steps))
+        if self.grad_clip_norm:
+            # optax.clip_by_global_norm: untouched below the limit, else
+            # scaled onto it
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            limit = float(self.grad_clip_norm)
+            scale = torch.where(norm < limit, torch.ones_like(norm),
+                                limit / norm)
+            torch._foreach_mul_(grads, scale)
+        if self.schedule is not None:
+            for group in self.adam.param_groups:
+                group["lr"] = self.schedule(self.count)
+        self.adam.step()
+        self.adam.zero_grad(set_to_none=True)
+        self.count += 1
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        pending = None
+        if self.mini_step:
+            pending = [None if p.grad is None else p.grad.detach().clone()
+                       for p in self.params]
+        return {"adam": self.adam.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "pending_grads": pending}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        pending = state["pending_grads"] or [None] * len(self.params)
+        for p, g in zip(self.params, pending):
+            p.grad = None if g is None else g.to(p.device, p.dtype)
+
+
+def make_optimizer(params, optimizer_config: Optional[dict] = None,
+                   dmodel: int = 144, use_warmup: bool = False,
+                   grad_clip_norm: Optional[float] = None) -> Optimizer:
+    """The optimizer over ``params`` that ``optimizer_config`` describes
+    (keys lr, beta1, beta2, epsilon, warmup_steps, grad_accum_steps). A
+    different ``grad_accum_steps`` changes what a checkpoint holds between
+    updates, so resume with the value the run was saved with."""
+    oc = optimizer_config or {}
+    lr = oc.get("lr", 1e-4)
+    if use_warmup:
+        lr = transformer_schedule(dmodel, oc.get("warmup_steps", 10000))
+    return Optimizer(params, lr, b1=oc.get("beta1", 0.9),
+                     b2=oc.get("beta2", 0.98), eps=oc.get("epsilon", 1e-6),
+                     grad_clip_norm=grad_clip_norm,
+                     accum_steps=int(oc.get("grad_accum_steps", 1)))
+
+
+@dataclasses.dataclass
+class ASRTrainState:
+    """Everything a training run carries from step to step. ``step`` counts
+    ``train_step`` calls (micro-batches) on the host; ``generator`` lives on
+    the model's device and feeds dropout and SpecAugment."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+    def state_dict(self) -> dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"].cpu())
+        self.step = int(state["step"])

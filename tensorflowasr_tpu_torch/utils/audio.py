@@ -1,14 +1,16 @@
 """Host-side waveform IO and padding (numpy + scipy only).
 
-Counterpart of ``read_wav`` and ``SpeechFeaturizer.load_wav`` /
-``pad_signal`` in ``tensorflowasr_tpu.utils.audio``: load a wav at a target
-sample rate (resampling if needed), convert to float32 in [-1, 1], and pad
+Counterpart of ``read_wav`` / ``write_wav`` / ``resample`` and
+``SpeechFeaturizer.load_wav`` / ``pad_signal`` in
+``tensorflowasr_tpu.utils.audio``: load a wav at a target sample rate
+(resampling if needed), convert to float32 in [-1, 1], write PCM16, and pad
 signals so the frame math of the frontend works out.
 """
 
 from __future__ import annotations
 
 import io
+import wave
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,6 +53,16 @@ def read_wav(path_or_bytes, target_sr: Optional[int] = None,
         data = resample(data, sr, target_sr)
         sr = target_sr
     return np.ascontiguousarray(data, dtype=np.float32), sr
+
+
+def write_wav(path: str, wav: np.ndarray, sr: int) -> None:
+    """Float waveform in [-1, 1] -> mono PCM16 wav file."""
+    pcm = np.clip(wav * 32768.0, -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
 
 
 class SpeechFeaturizer:

@@ -69,6 +69,15 @@ class UserConfig(UserDict):
         return wrapped
 
 
+def cfg_get(section, key: str, default=None):
+    """Read a config key from a UserConfig section OR a plain dict,
+    falling back to ``default`` when the key is absent or None."""
+    if section is None:
+        return default
+    v = section.get(key) if hasattr(section, "get") else None
+    return default if v is None else v
+
+
 def preprocess_paths(path: Optional[str]) -> Optional[str]:
     """Expand ~ and make absolute."""
     if path is None:

@@ -21,13 +21,14 @@ torch.set_num_threads(2)
 D, HEADS, HEAD_SIZE = 32, 2, 16
 
 
-def randomize(shapes, seed):
+def randomize(shapes, seed, bias_scale=0.2):
     rng = np.random.default_rng(seed)
 
     def draw(path, x):
         if path[-1].key == "var":
             return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
-        return (rng.standard_normal(x.shape) * 0.2).astype(np.float32)
+        scale = bias_scale if path[-1].key == "bias" else 0.2
+        return (rng.standard_normal(x.shape) * scale).astype(np.float32)
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
@@ -91,7 +92,7 @@ def test_conv_module():
 def test_conformer_block():
     check(jl.ConformerBlock(input_dim=D, head_size=HEAD_SIZE,
                             num_heads=HEADS, kernel_size=8),
-          tl.ConformerBlock(D, 0.5, HEAD_SIZE, HEADS, 8), x_of(2, 13, D))
+          tl.ConformerBlock(D, 0.0, 0.5, HEAD_SIZE, HEADS, 8), x_of(2, 13, D))
 
 
 def test_positional_encoding():
@@ -110,7 +111,7 @@ def test_rmhsa_module():
 def test_rblock():
     check(jl.RBlock(input_dim=D, head_size=HEAD_SIZE, num_heads=HEADS,
                     kernel_size=8),
-          tl.RBlock(D, 0.5, HEAD_SIZE, HEADS, 8),
+          tl.RBlock(D, 0.0, 0.5, HEAD_SIZE, HEADS, 8),
           x_of(2, 9, D), x_of(2, 13, D, seed=2))
 
 
@@ -125,6 +126,130 @@ def test_norms_use_keras_epsilon():
 
 
 def test_batchnorm_training_mode_raises():
-    bn = tl.BatchNorm(D)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bn.train()(torch.zeros(1, 2, D))
+    """Training-mode BatchNorm used to raise (inference-only port); it now
+    normalizes with batch statistics. What still raises is a training-mode
+    dropout that was given no generator to draw from."""
+    bn = tl.BatchNorm(D).train()
+    y = bn(torch.from_numpy(x_of(4, 6, D)) * 3 + 1)
+    np.testing.assert_allclose(y.mean((0, 1)).detach().numpy(), 0, atol=1e-5)
+    drop = tl.Dropout(0.5).train()
+    with pytest.raises(RuntimeError, match="generator"):
+        drop(torch.zeros(1, 2, D))
+
+
+def check_training(flax_module, torch_module, *inputs, seed=0, atol=1e-5):
+    """Training mode, dropout 0, same weights and inputs: the outputs, the
+    gradient of sum(out * cotangent) with respect to the first input and the
+    updated BatchNorm running statistics agree with flax
+    (``mutable=["batch_stats"]``). f32; the difference is summation order.
+    Batch statistics take the variance as E[x^2] - E[x]^2 in both
+    frameworks, which loses digits where a channel's |mean| is many times its
+    deviation; the biases are drawn small (0.02) so that the channels in
+    front of the BatchNorm stay conditioned well enough for atol 1e-5."""
+    shapes = jax.eval_shape(flax_module.init, jax.random.PRNGKey(0),
+                            *inputs)
+    variables = randomize(shapes, seed, bias_scale=0.02)
+    cot = x_of(*inputs[0].shape[:-1], D, seed=9)
+
+    def f(x):
+        out, new = flax_module.apply(variables, x, *inputs[1:], True,
+                                     mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, new["batch_stats"])
+
+    (_, (want, want_stats)), want_grad = jax.jit(
+        jax.value_and_grad(f, has_aux=True))(jnp.asarray(inputs[0]))
+    torch_module.load_state_dict(to_torch_names(flatten(variables)))
+    x = torch.from_numpy(inputs[0]).requires_grad_()
+    got = torch_module.train()(x, *map(torch.from_numpy, inputs[1:]))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=atol)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad),
+                               rtol=0, atol=atol)
+    stats = to_torch_names(flatten({"batch_stats": want_stats}))
+    assert stats
+    buffers = dict(torch_module.named_buffers())
+    for name, value in stats.items():
+        np.testing.assert_allclose(buffers[name].numpy(), value.numpy(),
+                                   rtol=0, atol=atol, err_msg=name)
+        # and they moved: the running statistics started elsewhere
+        assert not np.allclose(
+            value.numpy(),
+            to_torch_names(flatten(variables))[name].numpy(), atol=1e-4)
+
+
+def test_conv_module_training_matches_flax():
+    # the first rows are "padding" (zeros): flax's BatchNorm counts them in
+    # the batch statistics, and so does the port
+    x = x_of(3, 13, D)
+    x[1, 7:] = 0.0
+    check_training(jl.ConvModule(input_dim=D, kernel_size=8),
+                   tl.ConvModule(D, 8), x)
+
+
+def test_conformer_block_training_matches_flax():
+    check_training(jl.ConformerBlock(input_dim=D, head_size=HEAD_SIZE,
+                                     num_heads=HEADS, kernel_size=8),
+                   tl.ConformerBlock(D, 0.0, 0.5, HEAD_SIZE, HEADS, 8),
+                   x_of(2, 13, D))
+
+
+def test_rblock_training_matches_flax():
+    check_training(jl.RBlock(input_dim=D, head_size=HEAD_SIZE,
+                             num_heads=HEADS, kernel_size=8),
+                   tl.RBlock(D, 0.0, 0.5, HEAD_SIZE, HEADS, 8),
+                   x_of(2, 9, D), x_of(2, 13, D, seed=2))
+
+
+def test_batchnorm_variance_is_biased_and_clipped():
+    """The running variance takes the biased batch variance (torch's own
+    batch_norm records the unbiased one), and a constant input, whose
+    E[x^2] - E[x]^2 rounds below zero, gives variance 0 and finite output."""
+    bn = tl.BatchNorm(D).train()
+    x = torch.from_numpy(x_of(2, 5, D))
+    bn(x)
+    flat = x.reshape(-1, D)
+    np.testing.assert_allclose(
+        bn.running_var.numpy(),
+        0.99 + 0.01 * flat.var(0, unbiased=False).numpy(), atol=1e-6)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               0.01 * flat.mean(0).numpy(), atol=1e-6)
+    out = bn(torch.full((2, 5, D), 1e3))
+    assert torch.isfinite(out).all()
+
+
+def test_dropout_is_identity_in_eval_and_at_rate_zero():
+    x = torch.from_numpy(x_of(2, 7, D))
+    assert tl.Dropout(0.3).eval()(x) is x
+    assert tl.Dropout(0.0).train()(x) is x
+    block = tl.ConformerBlock(D, 0.5, 0.5, HEAD_SIZE, HEADS, 8).eval()
+    tl.init_weights_(block, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(block(x), block(x))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keep_rate_and_scale(rate):
+    n = 200_000
+    drop = tl.Dropout(rate).train()
+    drop.generator = torch.Generator().manual_seed(3)
+    y = drop(torch.ones(n))
+    kept = y != 0
+    # kept values are scaled by 1 / (1 - rate), exactly
+    assert torch.all(y[kept] == 1.0 / (1.0 - rate))
+    # the kept count is binomial(n, 1 - rate): within 3 sigma
+    sigma = (n * rate * (1 - rate)) ** 0.5
+    assert abs(int(kept.sum()) - n * (1 - rate)) < 3 * sigma
+
+
+def test_dropout_mask_follows_the_generator_seed():
+    block = tl.ConformerBlock(D, 0.3, 0.5, HEAD_SIZE, HEADS, 8).train()
+    tl.init_weights_(block, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(x_of(2, 7, D))
+    outs = []
+    for seed in (5, 5, 6):
+        tl.set_generator(block, torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            outs.append(block(x))
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])

@@ -18,6 +18,7 @@ import torch
 from tensorflowasr_tpu.models import conformer as jconf
 from tensorflowasr_tpu_torch.models import conformer as tconf
 from tensorflowasr_tpu_torch.models import convert
+from tensorflowasr_tpu_torch.models.layers import set_generator
 
 torch.set_num_threads(2)
 
@@ -170,6 +171,87 @@ def test_npz_weights_round_trip(tmp_path):
     for k in direct:
         assert torch.equal(from_npz[k], direct[k]), k
     assert convert.num_classes(direct) == (N_PHONE, N_CHAR)
+
+
+def _train_inputs(seed=4, b=2, t=8000, l=7):
+    rng = np.random.default_rng(seed)
+    wav = (rng.standard_normal((b, t)) * 0.1).astype(np.float32)
+    phones = rng.integers(1, N_PHONE - 1, (b, l)).astype(np.int32)
+    in_len = np.array([t // 640, t // 640 - 3], np.int32)
+    return wav, phones, in_len
+
+
+def test_train_forward_matches_flax():
+    """Training mode with dropout 0: all five outputs of ``train_forward``
+    and the BatchNorm statistics it leaves behind (the translator runs
+    twice, so its statistics move twice)."""
+    jmodel, variables = jax_model()
+    tmodel = torch_model(variables, dropout=0.0, ctcdecoder_dropout=0.0,
+                         translator_dropout=0.0).train()
+    wav, phones, in_len = _train_inputs()
+    want, new = jax.jit(functools.partial(
+        jmodel.apply, method=jconf.ConformerCTC.train_forward,
+        mutable=["batch_stats"]))(variables, wav, phones, in_len)
+    got = tmodel.train_forward(*map(torch.from_numpy,
+                                    (wav, phones, in_len)))
+    names = ("enc", "ctc_logits", "decoded", "label_out", "ctc_out")
+    t_enc = -(-(-(-wav.shape[1] // 160)) // 4)
+    assert got[3].shape == (2, phones.shape[1] + 5, N_CHAR)
+    assert got[4].shape == (2, t_enc, N_CHAR)      # width T', not U
+    for name, w, g in zip(names, want, got):
+        w, g = np.asarray(w), g.detach().numpy()
+        assert g.shape == w.shape, name
+        if name == "decoded":
+            np.testing.assert_array_equal(g, w)
+        else:
+            # f32, summation order only
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-5,
+                                       err_msg=name)
+    stats = convert.to_torch_names(convert.flatten(
+        {"batch_stats": jax.tree.map(np.asarray, new["batch_stats"])}))
+    buffers = dict(tmodel.named_buffers())
+    assert set(stats) == set(buffers)
+    for name, value in stats.items():
+        np.testing.assert_allclose(buffers[name].numpy(), value.numpy(),
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+
+def test_remat_blocks_changes_no_number():
+    """``remat_blocks`` recomputes the encoder blocks in the backward pass:
+    with dropout on, the same loss, gradients and running statistics as
+    without it (the recomputation replays the same masks and does not move
+    the statistics a second time)."""
+    wav, phones, in_len = map(torch.from_numpy, _train_inputs(seed=5))
+    results = []
+    for remat in (False, True):
+        cfg = tconf.ConformerConfig(**TINY, remat_blocks=remat)
+        model = tconf.build_model(cfg, N_PHONE, N_CHAR, device="cpu",
+                                  seed=3).train()
+        set_generator(model, torch.Generator().manual_seed(11))
+        out = model.train_forward(wav, phones, in_len)
+        (out[1].sum() + out[3].sum() + out[4].sum()).backward()
+        results.append((out[1].detach(),
+                        [p.grad for p in model.parameters()],
+                        [b.clone() for b in model.buffers()]))
+    (logits_a, grads_a, bufs_a), (logits_b, grads_b, bufs_b) = results
+    assert torch.equal(logits_a, logits_b)
+    for a, b in zip(grads_a + bufs_a, grads_b + bufs_b):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_eval_mode_is_unchanged_by_the_training_fields():
+    """Dropout rates and SpecAugment do nothing in eval mode."""
+    _, variables = jax_model()
+    wav, ids = inputs(seed=6, t=8000)
+    plain = torch_model(variables, dropout=0.0, ctcdecoder_dropout=0.0,
+                        translator_dropout=0.0)
+    full = torch_model(variables, spec_augment=True)
+    with torch.no_grad():
+        for a, b in zip(plain(torch.from_numpy(wav), torch.from_numpy(ids)),
+                        full(torch.from_numpy(wav), torch.from_numpy(ids))):
+            assert torch.equal(a, b)
 
 
 def test_unported_options_raise():
