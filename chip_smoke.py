@@ -1,5 +1,6 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
-paths on one CUDA card and check them.
+paths and its chunk-streaming ChunkConformer(S) serving path on one CUDA
+card, and check them.
 
     python3 chip_smoke.py
 
@@ -19,7 +20,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              log-mel within rtol 1e-3 / atol 5e-2. Times the kernel, the
              plain version and ``torch.stft`` at the serve, the request and
              the train shape, each with median, minimum and spread, beside
-             that shape's bound.
+             that shape's bound, and at the cli buckets (with a CUDA graph
+             replay, since events time the host there).
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -50,15 +52,52 @@ Phases, in order; any failure raises and the script exits non-zero:
              steps with a save, then ``cli.eval_am`` from that checkpoint,
              which must restore it and print its JSON of phone and char
              error rates.
+8. chunk_kernel  - K1 'valid' at the chunk path's four shapes (B=1 x 5120,
+             the stream step's mel of [wav tail | chunk]; B=256 x 5120, the
+             pool tick's; B=128 x 7 s, the offline batch; B=1 x 8 s, the
+             chunk CLI's offline decode) against its plain version, then
+             timed with the plain version and ``torch.stft`` (left pad
+             1023, ``center=False``) + ``abs()**2``: CUDA events at every
+             shape, and a CUDA graph replay at all but the offline batch.
+9. chunk_offline - ChunkConformer(S) from ``configs/chunk_conformerS.yml``
+             at full width (``serve/bench_chunk.py``: seeded weights, first
+             conv x10, the picker's blank bias moved so about half the
+             frames are picked): ``make_chunk_predict_step`` on B=128 x 7 s
+             in f32 and bf16, median of 5, per-stream RTF; 20-80 % of the
+             frames picked, every row picking some.
+10. chunk_stream - one stream in f32 and bf16: ``fused_stream_step``
+             chained over 50 chunks on its caches with one sync at the end
+             (best of 3), every implicit host sync an error
+             (``torch.cuda.set_sync_debug_mode``); then ``ChunkStreamSession``
+             with a fetch a chunk. In f32 the session's phone ids on the 8 s
+             signal must equal the collapsed argmax of the offline
+             ``encode_to_phones``, and ``picker_stream_step``'s logits on the
+             card must be within 1e-3 of the CPU port's.
+11. chunk_pool   - ``batched_stream_step`` over 256 slots, f32 and bf16,
+             chained as bench.py:239-286 does (best of 10 x 25 ticks, no
+             implicit sync), and ``MultiStreamChunkServer.tick`` draining 25
+             chunks of every slot (upload, step, fetch): tick ms, streams in
+             real time (256 x 0.16 s / tick), per-stream RTF, peak memory.
+             Then 4 streams of 2, 3.5, 5 and 8 s go through a 256-slot pool
+             in interleaved odd-sized packets, the 4th opened when the first
+             closes; each result must equal an independent
+             ``ChunkStreamSession``'s on the card.
+12. chunk_cli    - ``cli.test_chunk_asr --device cuda`` on an 8 s wav in a
+             temporary directory (the cli phase's full-size vocabularies),
+             with the f32 chunk model's weights written as a flax ``.npz``
+             for ``--weights``: its streamed phones must equal its offline
+             phones, and K1 must run once a chunk.
 
 K1's launch count is set to 0 just before the ``predict_step`` calls, the
-session's 4 requests, each dtype's train steps and the two CLI calls, and
-read just after each; all must have launched it. The stage breakdowns and
-the card-vs-CPU checks run outside those windows. K1's times at the request
-and the train shape go on ``k1_request_shape`` and ``k1_train_shape`` JSON
-lines in the kernel phase. The last lines are a JSON line of kernel numbers
-(K1's times at the serve shape, with those two shapes' beside them and the
-largest error over all shapes), then ``{"ok": true, "device": {...}}``.
+session's 4 requests, each dtype's train steps, the two CLI calls, each
+chunk phase's timed runs and the chunk CLI call, and read just after each;
+all must have launched it. The stage breakdowns and the card-vs-CPU checks
+run outside those windows. K1's times at the request and the train shape go
+on ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel
+phase. The last lines are a JSON line of kernel numbers (K1's times at the
+serve shape, with the request, train, cli and the four 'valid' shapes
+beside them and the largest error over all shapes), then ``{"ok": true,
+"device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
 """
@@ -79,6 +118,12 @@ import time
 import numpy as np
 import torch
 
+from tensorflowasr_tpu_torch.serve.bench_chunk import (
+    CHUNK_S,
+    CHUNK_SAMPLES,
+    chunk_models,
+    tones,
+)
 from tensorflowasr_tpu_torch.train.bench_batch import (
     N_CHAR,
     N_PHONE,
@@ -205,12 +250,43 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False
             "bound_by": "operations" if by_ops > by_bytes else "bytes"}
 
 
-def phase_kernel() -> dict:
+def hold_k1(padding: str, b: int, t: int):
+    """K1 against its plain version on one seeded input (power, and the
+    log-mel built on it). Returns (max |err| on power, whether the launch
+    took 16-byte slab copies)."""
     from tensorflowasr_tpu_torch.ops import frontend as fe
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
+    plan = k1.launch_plan(b, t, cfg.hop, fe._left_pad(t, cfg), sm_count,
+                          base_aligned=wav.data_ptr() % 16 == 0)
+    got = fe.power_spectrogram(wav, cfg)
+    want = fe.power_spectrogram_reference(wav, cfg)
+    torch.cuda.synchronize()
+    err = within(got, want, **POWER_TOL)
+    mel = torch.from_numpy(fe._frontend_constants(cfg)[1]).to(dev)
+    mel_err = within(fe.log_mel_spectrogram(wav, cfg),
+                     torch.matmul(fe._to_db(want, cfg), mel), **LOGMEL_TOL)
+    log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)} "
+        f"(tile {plan.tile_frames} frames, {plan.groups * 64} threads, "
+        f"{16 if plan.vec16 else 4}-byte copies): max|err| power "
+        f"{err:.3e}, log-mel {mel_err:.3e}")
+    return err, plan.vec16
+
+
+def k1_numbers(batch: int, samples: int, times: dict) -> dict:
+    """The kernels line's numbers for one shape timed by ``time_k1``."""
+    return {"batch": batch, "samples": samples,
+            "ms": times["kernel"]["median"],
+            "plain_ms": times["plain"]["median"],
+            "library_ms": times["library"]["median"],
+            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]}
+
+
+def phase_kernel() -> dict:
     # 'same' batched and the one-chunk request take 16-byte slab copies;
     # 'valid' (left pad 1023) and the ragged row stride take 4-byte ones.
     # Then the shapes the later phases give K1: the train batch, the cli
@@ -220,27 +296,11 @@ def phase_kernel() -> dict:
               ("same", TRAIN_B, TRAIN_SECONDS * SR),
               *(("same", CLI_B, int(s * SR)) for s in CLI_BUCKET_SECONDS),
               ("same", 2, SR))
-    result, copies = {}, set()
+    result, copies = {"max_abs_err": 0.0}, set()
     for padding, b, t in shapes:
-        cfg = fe.LogMelFrontendConfig(padding=padding)
-        wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
-        plan = k1.launch_plan(b, t, cfg.hop, fe._left_pad(t, cfg), sm_count,
-                              base_aligned=wav.data_ptr() % 16 == 0)
-        copies.add(plan.vec16)
-        got = fe.power_spectrogram(wav, cfg)
-        want = fe.power_spectrogram_reference(wav, cfg)
-        torch.cuda.synchronize()
-        err = within(got, want, **POWER_TOL)
-        mel = torch.from_numpy(fe._frontend_constants(cfg)[1]).to(dev)
-        mel_err = within(fe.log_mel_spectrogram(wav, cfg),
-                         torch.matmul(fe._to_db(want, cfg), mel),
-                         **LOGMEL_TOL)
-        log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)} "
-            f"(tile {plan.tile_frames} frames, {plan.groups * 64} threads, "
-            f"{16 if plan.vec16 else 4}-byte copies): max|err| power "
-            f"{err:.3e}, log-mel {mel_err:.3e}")
-        result["max_abs_err"] = max(result.get("max_abs_err", 0.0), err)
-        del got, want
+        err, vec16 = hold_k1(padding, b, t)
+        copies.add(vec16)
+        result["max_abs_err"] = max(result["max_abs_err"], err)
     if copies != {True, False}:
         raise AssertionError("the shapes did not cover both copy paths")
 
@@ -274,20 +334,29 @@ def phase_kernel() -> dict:
         f"by {train['bound_by']} ({train['flops']:.4e} FFT FLOP, "
         f"{train['bytes']:.4e} B)")
 
-    def numbers(batch, samples, times):
-        return {"batch": batch, "samples": samples,
-                "ms": times["kernel"]["median"],
-                "plain_ms": times["plain"]["median"],
-                "library_ms": times["library"]["median"],
-                "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]}
-
-    result["train_shape"] = numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
+    # the cli phase's buckets: 1-2 MB in, small enough that events time the
+    # host, so the graph replay is the device's time
+    result["cli_shapes"] = []
+    for seconds in CLI_BUCKET_SECONDS:
+        t = int(seconds * SR)
+        times = time_k1("same", CLI_B, t, reps=20, graph=True)
+        result["cli_shapes"].append(dict(
+            k1_numbers(CLI_B, t, times),
+            graph_ms=times["kernel_graph"]["median"]))
+        log(f"kernel: K1 same B={CLI_B} T={t} (a cli bucket): kernel "
+            f"{fmt_times(times['kernel'])}; kernel replayed from a CUDA "
+            f"graph {fmt_times(times['kernel_graph'])}; plain "
+            f"{fmt_times(times['plain'])}; library (torch.stft + abs()**2) "
+            f"{fmt_times(times['library'])}; bound_ms "
+            f"{times['bound_ms']:.6f} by {times['bound_by']} "
+            f"({times['bytes']:.4e} B)")
+    result["train_shape"] = k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
     result["request_shape"] = dict(
-        numbers(1, REQUEST_SAMPLES, request),
+        k1_numbers(1, REQUEST_SAMPLES, request),
         graph_ms=request["kernel_graph"]["median"])
     log(json.dumps({"k1_request_shape": result["request_shape"]}))
     log(json.dumps({"k1_train_shape": result["train_shape"]}))
-    result.update(numbers(128, 7 * SR, batched))
+    result.update(k1_numbers(128, 7 * SR, batched))
     return result
 
 
@@ -709,10 +778,405 @@ def phase_cli() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Chunk streaming (SMLTA2): ChunkConformer(S) from configs/chunk_conformerS.yml
+# ---------------------------------------------------------------------------
+
+POOL_SLOTS, POOL_TICKS, POOL_REPS = 256, 25, 10      # bench.py:239-286
+OFFLINE_B, OFFLINE_SECONDS = 128, 7
+STREAM_CHUNKS, STREAM_REPS = 50, 3   # bench.py:175-203: 50 chained chunks
+CLI_CHUNKS = 50                      # the chunk CLI's wav: 8 s, 50 chunks
+# K1's 'valid' shapes on the chunk path: the stream step's and the pool
+# tick's mel of [wav tail | chunk], the offline batch, and the chunk CLI's
+# offline decode of its one wav
+CHUNK_K1_SHAPES = {"stream": (1, 2 * CHUNK_SAMPLES),
+                   "pool": (POOL_SLOTS, 2 * CHUNK_SAMPLES),
+                   "offline": (OFFLINE_B, OFFLINE_SECONDS * SR),
+                   "cli": (1, CLI_CHUNKS * CHUNK_SAMPLES)}
+
+
+def chunk_models_logged() -> dict:
+    """``serve/bench_chunk.py``'s f32 and bf16 models on the card."""
+    models, moved = chunk_models(device="cuda")
+    log(f"chunk: ChunkConformer(S) from configs/chunk_conformerS.yml, "
+        f"seeded; first conv x10, blank bias moved by {moved:.4f} (the "
+        f"median margin over 4 x 4 s of warm-up signals)")
+    return models
+
+
+def check_share(share: float, what: str) -> None:
+    if not 0.2 <= share <= 0.8:
+        raise AssertionError(f"the picker keeps {share:.1%} of the frames "
+                             f"of {what}, not 20-80 %")
+
+
+def phase_chunk_kernel() -> dict:
+    """K1 'valid' at the chunk path's three shapes: held against its plain
+    version, then timed with the plain version and ``torch.stft``."""
+    err = max(hold_k1("valid", b, t)[0] for b, t in CHUNK_K1_SHAPES.values())
+    out = {"max_abs_err": err}
+    for name, (b, t) in CHUNK_K1_SHAPES.items():
+        # the stream, pool and cli shapes are 20 KB, 5 MB and 0.5 MB in:
+        # events time the host's enqueue rate there, a graph replay the
+        # device's own
+        small = name != "offline"
+        times = time_k1("valid", b, t, reps=50, graph=small)
+        out[name] = k1_numbers(b, t, times)
+        replay = ""
+        if small:
+            out[name]["graph_ms"] = times["kernel_graph"]["median"]
+            replay = (f"; kernel replayed from a CUDA graph "
+                      f"{fmt_times(times['kernel_graph'])}")
+        log(f"chunk_kernel: K1 valid B={b} T={t} ({name}): kernel "
+            f"{fmt_times(times['kernel'])}{replay}; plain "
+            f"{fmt_times(times['plain'])}; library (torch.stft, left pad "
+            f"1023, center=False, + abs()**2) {fmt_times(times['library'])}"
+            f"; bound_ms {times['bound_ms']:.6f} by {times['bound_by']} "
+            f"({times['bytes']:.4e} B, {times['flops']:.4e} FFT FLOP)")
+    return out
+
+
+def phase_chunk_offline(models: dict, reps: int = 5) -> int:
+    """``make_chunk_predict_step`` at B = 128 x 7 s. Returns K1's launches
+    in the timed calls."""
+    from tensorflowasr_tpu_torch.train.chunk_trainer import (
+        make_chunk_predict_step,
+    )
+
+    dev = torch.device("cuda")
+    wav = torch.from_numpy(np.stack([
+        tones(OFFLINE_SECONDS, seed=100 + i) for i in range(OFFLINE_B)])
+    ).to(dev)
+    t_enc = OFFLINE_SECONDS * SR // 640
+    in_len = torch.full((OFFLINE_B,), t_enc, dtype=torch.int32, device=dev)
+    launches = 0
+    for dtype, model in models.items():
+        step = make_chunk_predict_step(model)
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = step(wav, in_len)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return times, out
+
+        step(wav, in_len)                                   # warm-up
+        (times, out), n = k1_counted(run)
+        if n != reps:
+            raise AssertionError(f"{reps} predict calls launched K1 {n} "
+                                 f"times")
+        launches += n
+        char_ids, char_lens, phone_ids, phone_lens = out
+        if tuple(phone_ids.shape) != (OFFLINE_B, t_enc) or \
+                tuple(char_ids.shape) != (OFFLINE_B, t_enc):
+            raise AssertionError(f"shapes {tuple(phone_ids.shape)} "
+                                 f"{tuple(char_ids.shape)}")
+        with torch.no_grad():
+            _, _, counts = model.predict(wav, None)
+        share = float(counts.sum()) / (OFFLINE_B * t_enc)
+        check_share(share, "the offline batch")
+        if int(counts.min()) <= 0 or int(phone_lens.min()) <= 0 or \
+                int(char_ids.max()) >= N_CHAR:
+            raise AssertionError("a row picked nothing or decoded nothing")
+        step_s = statistics.median(times)
+        log(f"chunk_offline: make_chunk_predict_step {dtype} B={OFFLINE_B} "
+            f"x {OFFLINE_SECONDS} s: median {step_s * 1e3:.3f} ms (min "
+            f"{min(times) * 1e3:.3f}, {reps} calls), per-stream RTF "
+            f"{step_s / (OFFLINE_B * OFFLINE_SECONDS):.3e}; picked "
+            f"{int(counts.min())}-{int(counts.max())} of {t_enc} frames a "
+            f"row ({share:.1%}); char lengths {int(char_lens.min())}-"
+            f"{int(char_lens.max())}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def chained(step, n: int):
+    """``step()`` n times with every implicit host sync an error, then one
+    sync: returns the seconds per call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def phase_chunk_stream(models: dict) -> int:
+    """One stream: ``fused_stream_step`` chained on its caches (device
+    only) and ``ChunkStreamSession`` (a fetch a chunk), in f32 and bf16;
+    then, in f32, the session against the offline decode and the card's
+    picker logits against the CPU's. Returns K1's launches in the timed
+    runs."""
+    from tensorflowasr_tpu_torch.models.chunk_conformer import ChunkConformer
+    from tensorflowasr_tpu_torch.serve.chunk_session import (
+        ChunkStreamSession,
+        collapse,
+    )
+
+    dev = torch.device("cuda")
+    signal = tones(STREAM_CHUNKS * CHUNK_S, seed=70)             # 8 s
+    chunks = torch.from_numpy(signal.reshape(STREAM_CHUNKS, 1, -1)).to(dev)
+    launches, results = 0, {}
+    for dtype, model in models.items():
+        state = {}
+
+        def device_only():
+            times = []
+            for _ in range(STREAM_REPS):
+                state["caches"] = model.init_stream_caches(1)
+                state["i"] = 0
+
+                def step():
+                    out = model.fused_stream_step(chunks[state["i"]],
+                                                  state["caches"])
+                    state["caches"] = out[4]
+                    state["i"] += 1
+
+                times.append(chained(step, STREAM_CHUNKS))
+            return times
+
+        session = ChunkStreamSession(model, device="cuda")
+
+        def wall():
+            session.reset()
+            times = []
+            for i in range(STREAM_CHUNKS):
+                t0 = time.perf_counter()
+                session.feed(signal[i * CHUNK_SAMPLES:(i + 1) * CHUNK_SAMPLES])
+                times.append(time.perf_counter() - t0)
+            return times, session.flush()
+
+        with torch.no_grad():
+            for i in range(3):                                  # warm-up
+                model.fused_stream_step(chunks[i],
+                                        model.init_stream_caches(1))
+            session.feed(signal[:CHUNK_SAMPLES])
+            dev_times, n_dev = k1_counted(device_only)
+            (wall_times, result), n_wall = k1_counted(wall)
+        if (n_dev, n_wall) != (STREAM_REPS * STREAM_CHUNKS, STREAM_CHUNKS):
+            raise AssertionError(f"K1 launches {n_dev}, {n_wall}: not one "
+                                 f"per chunk")
+        launches += n_dev + n_wall
+        results[dtype] = result
+        best, med = min(dev_times), statistics.median(wall_times)
+        log(f"chunk_stream: {dtype} fused_stream_step, device only "
+            f"({STREAM_CHUNKS} chained chunks, one sync, no implicit sync "
+            f"under set_sync_debug_mode('error')): best "
+            f"{best * 1e3:.3f} ms a chunk (median "
+            f"{statistics.median(dev_times) * 1e3:.3f} of {STREAM_REPS}), "
+            f"RTF {best / CHUNK_S:.4f}; ChunkStreamSession wall (a fetch a "
+            f"chunk): median {med * 1e3:.3f} ms a chunk (min "
+            f"{min(wall_times) * 1e3:.3f}, max {max(wall_times) * 1e3:.3f}),"
+            f" RTF {med / CHUNK_S:.4f}; {len(result['phone_ids'])} phones, "
+            f"{len(result['char_ids'])} chars on the 8 s signal")
+
+    # f32: streaming ids = the offline decode, on the card
+    f32 = models["float32"]
+    with torch.no_grad():
+        logits, _ = f32.encode_to_phones(torch.from_numpy(signal[None])
+                                         .to(dev))
+    ids = logits[0].argmax(-1)
+    share = float((ids != N_PHONE - 1).float().mean())
+    check_share(share, "the 8 s signal")
+    offline = collapse(ids.tolist(), N_PHONE - 1)
+    if results["float32"]["phone_ids"] != offline:
+        raise AssertionError("the session's phone ids differ from the "
+                             "offline decode")
+    top2 = logits[0].topk(2, dim=-1).values
+    log(f"chunk_stream: f32 session phone ids = offline encode_to_phones "
+        f"argmax, collapsed ({share:.1%} of the frames picked, "
+        f"{len(offline)} phones; smallest top-2 margin "
+        f"{float((top2[:, 0] - top2[:, 1]).min()):.3e})")
+
+    # f32 picker logits on the card against the CPU port, same weights
+    cpu = ChunkConformer(f32.cfg, N_PHONE, N_CHAR)
+    cpu.load_state_dict({k: v.cpu() for k, v in f32.state_dict().items()})
+    cpu.eval()
+    errs = []
+    with torch.no_grad():
+        caches_gpu, caches_cpu = f32.init_picker_caches(1), \
+            cpu.init_picker_caches(1)
+        for i in range(6):
+            lg, _, _, caches_gpu = f32.picker_stream_step(chunks[i],
+                                                          caches_gpu)
+            lc, _, _, caches_cpu = cpu.picker_stream_step(chunks[i].cpu(),
+                                                          caches_cpu)
+            errs.append(within(lg.cpu(), lc, rtol=0, atol=1e-3))
+    log(f"chunk_stream: f32 picker_stream_step logits, card vs CPU over 6 "
+        f"chunks: max|err| {max(errs):.3e}")
+    return launches
+
+
+def pool_requests(model, seconds=(2.0, 3.5, 5.0, 8.0)) -> None:
+    """4 streams fed to a 256-slot pool in interleaved odd-sized packets,
+    the 4th opened when the first closes: each result must equal an
+    independent ``ChunkStreamSession``'s."""
+    from tensorflowasr_tpu_torch.serve.chunk_session import (
+        ChunkStreamSession,
+    )
+    from tensorflowasr_tpu_torch.serve.multi_session import (
+        MultiStreamChunkServer,
+    )
+
+    wavs = [tones(s, seed=80 + i) for i, s in enumerate(seconds)]
+    singles = []
+    for w in wavs:
+        session = ChunkStreamSession(model, device="cuda")
+        session.feed(w)
+        singles.append(session.flush())
+    server = MultiStreamChunkServer(model, n_slots=POOL_SLOTS, device="cuda")
+
+    def packets(w, sizes=(2203, 777, 4100, 1501)):
+        cuts = np.cumsum(np.resize(sizes, len(w) // min(sizes) + 1))
+        return [p for p in np.split(w, cuts) if len(p)]
+
+    queues, stream_of, got = {}, {}, {}
+    for i in range(3):
+        slot = server.open()
+        queues[slot], stream_of[slot] = packets(wavs[i]), i
+    t0, ticks = time.perf_counter(), 0
+    while queues:
+        for slot in list(queues):
+            server.feed(slot, queues[slot].pop(0))
+        server.tick()
+        ticks += 1
+        for slot in [s for s in queues if not queues[s]]:
+            got[stream_of[slot]] = server.close(slot)
+            del queues[slot]
+            if 3 not in stream_of.values():
+                new = server.open()
+                queues[new], stream_of[new] = packets(wavs[3]), 3
+    wall = time.perf_counter() - t0
+    if [got[i] for i in range(len(wavs))] != singles:
+        raise AssertionError("the pool's results differ from independent "
+                             "sessions")
+    log(f"chunk_pool: f32 request check: {len(wavs)} streams of {seconds} s "
+        f"in odd-sized packets through {POOL_SLOTS} slots ({ticks} feed "
+        f"rounds, {wall:.2f} s) = {len(wavs)} independent sessions "
+        f"(phones {[len(r['phone_ids']) for r in singles]}, chars "
+        f"{[len(r['char_ids']) for r in singles]})")
+
+
+def phase_chunk_pool(models: dict) -> int:
+    """``MultiStreamChunkServer``'s step over 256 slots, f32 and bf16: the
+    tick chained on its caches (best of 10 x 25), and the server's own
+    ticks (upload, step, fetch); then the request check. Returns K1's
+    launches."""
+    from tensorflowasr_tpu_torch.serve.multi_session import (
+        MultiStreamChunkServer,
+    )
+
+    dev = torch.device("cuda")
+    signal = np.stack([tones(POOL_TICKS * CHUNK_S, seed=200 + i)
+                       for i in range(POOL_SLOTS)])
+    first = torch.from_numpy(signal[:, :CHUNK_SAMPLES].copy()).to(dev)
+    launches = 0
+    for dtype, model in models.items():
+        torch.cuda.reset_peak_memory_stats()
+        server = MultiStreamChunkServer(model, n_slots=POOL_SLOTS,
+                                        device="cuda")
+
+        def ticks():
+            times = []
+            for _ in range(POOL_REPS):
+                state = {"caches": model.init_multi_stream_caches(POOL_SLOTS)}
+
+                def step():
+                    *ids, state["caches"] = model.batched_stream_step(
+                        first, state["caches"])
+                    state["sum"] = sum(x.sum() for x in ids)
+
+                times.append(chained(step, POOL_TICKS))
+            slots = [server.open() for _ in range(POOL_SLOTS)]
+            for slot in slots:
+                server.feed(slot, signal[slot])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.tick()                        # drains POOL_TICKS chunks
+            served = (time.perf_counter() - t0) / POOL_TICKS
+            for slot in slots:
+                server.close(slot)
+            return times, served
+
+        with torch.no_grad():
+            model.batched_stream_step(
+                first, model.init_multi_stream_caches(POOL_SLOTS))  # warm
+            (times, served), n = k1_counted(ticks)
+        if n != POOL_REPS * POOL_TICKS + POOL_TICKS:
+            raise AssertionError(f"K1 launched {n} times, not once a tick")
+        launches += n
+        tick_s = min(times)
+        log(f"chunk_pool: {dtype} batched_stream_step over {POOL_SLOTS} "
+            f"slots, chained (one sync, no implicit sync): best "
+            f"{tick_s * 1e3:.3f} ms a tick (median "
+            f"{statistics.median(times) * 1e3:.3f} of {POOL_REPS} x "
+            f"{POOL_TICKS}) -> {POOL_SLOTS * CHUNK_S / tick_s:.1f} streams "
+            f"in real time, per-stream RTF {tick_s / CHUNK_S:.4f}; "
+            f"MultiStreamChunkServer.tick (upload, step, fetch) "
+            f"{served * 1e3:.3f} ms a tick -> "
+            f"{POOL_SLOTS * CHUNK_S / served:.1f} streams; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with torch.no_grad():
+        launches += k1_counted(lambda: pool_requests(models["float32"]))[1]
+    return launches
+
+
+def phase_chunk_cli(model) -> int:
+    """``cli.test_chunk_asr --device cuda`` on an 8 s wav, with ``model``'s
+    weights written as a flax ``.npz`` for ``--weights``: the streamed
+    phones must equal the offline ones. Returns K1's launches."""
+    from tensorflowasr_tpu_torch.cli import test_chunk_asr
+    from tensorflowasr_tpu_torch.models.convert import save_npz
+    from tensorflowasr_tpu_torch.utils.audio import write_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data_yml = write_corpus(tmp)            # full-size vocabularies
+        wav_path, npz = os.path.join(tmp, "utt.wav"), \
+            os.path.join(tmp, "chunk.npz")
+        write_wav(wav_path, tones(CLI_CHUNKS * CHUNK_S, seed=90), SR)
+        save_npz(model, npz)
+        args = ["--data_config", data_yml, "--model_config",
+                os.path.join(root, "configs", "chunk_conformerS.yml"),
+                "--wav", wav_path, "--weights", npz, "--device", "cuda",
+                "--compute_dtype", "float32"]
+        out = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(out):
+                return test_chunk_asr.main(args)
+
+        rc, launches = k1_counted(run)
+    lines = dict(line.split(":", 1) for line in out.getvalue().splitlines()
+                 if ":" in line and not line.startswith("audio"))
+    offline, stream = lines["offline phones"].split(), \
+        lines["stream  phones"].split()
+    if rc != 0 or not offline or stream != offline:
+        raise AssertionError(f"cli.test_chunk_asr: rc {rc}, offline phones "
+                             f"{offline[:20]}, streamed {stream[:20]}")
+    # offline: a warm-up and the timed decode; the session: a warm-up chunk
+    # and one launch a chunk (the wav is whole chunks, so no flush step)
+    if launches != 3 + CLI_CHUNKS:
+        raise AssertionError(f"the chunk CLI launched K1 {launches} times")
+    summary = out.getvalue().strip().splitlines()[-1]
+    log(f"chunk_cli: cli.test_chunk_asr --weights (the f32 model as a flax "
+        f".npz) --device cuda on an {CLI_CHUNKS * CHUNK_S:.0f} s wav: "
+        f"streamed phones = offline phones ({len(offline)}); {summary}")
+    return launches
+
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
-    k1_numbers = phase_kernel()
+    k1 = phase_kernel()
     models, batched = phase_serve()
     requested = phase_requests(models["float32"])
     del models
@@ -720,12 +1184,23 @@ def main() -> int:
     trained = phase_train()
     phase_train_card_vs_cpu()
     cli = phase_cli()
-    launches = batched + requested + trained + cli
+    torch.cuda.empty_cache()
+    k1_chunk = phase_chunk_kernel()
+    models = chunk_models_logged()
+    chunk = {"offline": phase_chunk_offline(models),
+             "stream": phase_chunk_stream(models),
+             "pool": phase_chunk_pool(models),
+             "cli": phase_chunk_cli(models["float32"])}
+    del models
+    launches = batched + requested + trained + cli + sum(chunk.values())
     log(f"launches: K1 {launches} on the main path ({batched} in the "
         f"predict_step calls, {requested} in the session's requests, "
         f"{trained} in the train steps, {cli} in the train_asr and eval_am "
-        f"CLI calls)")
-    if min(batched, requested, trained, cli) == 0:
+        f"CLI calls, {chunk['offline']} in the chunk predict calls, "
+        f"{chunk['stream']} in the one-stream chunk steps, "
+        f"{chunk['pool']} in the pool's ticks and the request check, "
+        f"{chunk['cli']} in the test_chunk_asr CLI call)")
+    if min(batched, requested, trained, cli, *chunk.values()) == 0:
         raise AssertionError("the main path did not launch K1 in every "
                              "phase")
 
@@ -734,15 +1209,18 @@ def main() -> int:
         "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
         "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:77",
         "launches": launches,
-        "max_abs_err": k1_numbers["max_abs_err"],
-        "ms": k1_numbers["ms"], "plain_ms": k1_numbers["plain_ms"],
-        "bound_ms": k1_numbers["bound_ms"],
-        "bound_by": k1_numbers["bound_by"],
-        "library_ms": k1_numbers["library_ms"],
+        "max_abs_err": max(k1["max_abs_err"], k1_chunk["max_abs_err"]),
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": k1["library_ms"],
         # the numbers above are the batched serving shape's (B=128 x 7 s)
-        "batch": k1_numbers["batch"], "samples": k1_numbers["samples"],
-        "request_shape": k1_numbers["request_shape"],
-        "train_shape": k1_numbers["train_shape"],
+        "batch": k1["batch"], "samples": k1["samples"],
+        "request_shape": k1["request_shape"],
+        "train_shape": k1["train_shape"],
+        "cli_shapes": k1["cli_shapes"],
+        # 'valid' on the chunk path; launches are those of the phase
+        "valid_shapes": {key: dict(k1_chunk[key], launches=chunk[key])
+                         for key in CHUNK_K1_SHAPES},
     }
     log(json.dumps({"kernels": [entry]}))
     log(json.dumps({"ok": True, "device": {

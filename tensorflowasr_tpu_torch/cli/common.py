@@ -83,8 +83,11 @@ def offline_ctc_setup(args, config: UserConfig):
     name = config.section("model_config")["name"] or "OfflineConformerCTC"
     if name == "ChunkConformer":
         raise NotImplementedError(
-            "model_config.name ChunkConformer (the chunk trainer) is not "
-            "ported yet")
+            "model_config.name ChunkConformer: chunk training and eval "
+            "(ChunkTrainer, train_forward, chunk_dataloader) are not ported "
+            "yet; they come with the chunk-training slice. The port serves "
+            "the chunk model: cli.test_chunk_asr, ChunkStreamSession, "
+            "MultiStreamChunkServer")
     if args.data_procs > 0:
         raise NotImplementedError(
             "--data_procs > 0 (process workers, data/mp_prefetch.py) is "

@@ -14,7 +14,6 @@ first.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 
 import numpy as np
@@ -30,14 +29,9 @@ def main() -> int:
     from tensorflowasr_tpu_torch.kernels.timing import graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
+    from tensorflowasr_tpu_torch.utils.profiling import card_line
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("the sweep needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
+    card_line()
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     ladder = k1.TILE_LADDER

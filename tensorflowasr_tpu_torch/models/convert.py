@@ -1,11 +1,14 @@
-"""Weight bridge between flax ``ConformerCTC`` variables and the torch
-``state_dict``, both ways.
+"""Weight bridge between flax ``ConformerCTC`` / ``ChunkConformer``
+variables and the torch ``state_dict`` (both ways for ``ConformerCTC``).
 
 The flax tree ``{"params": ..., "batch_stats": ...}`` arrives as nested
 dicts of numpy arrays (or flattened to ``params/encoder/.../kernel`` names,
 the layout ``tensorflowasr_tpu/export/native_export.py::_flatten`` writes).
 The encoder stack may be unrolled (``conformer_block_{i}``) or scanned
-(``conformer_blocks/scan/block`` with every leaf stacked on axis 0).
+(``conformer_blocks/scan/block`` with every leaf stacked on axis 0). A
+``ChunkConformer``'s four stacks likewise hold ``block_{i}`` children, or
+one ``block`` child whose leaves are stacked on axis 0 (``scan_layers``);
+both become ``blocks.{i}``.
 
 Layout changes, by leaf:
 
@@ -25,7 +28,7 @@ be produced, with matching shapes; anything else raises.
 A flax gradient tree has the layout of ``params``, so
 ``to_torch_names(flatten({"params": grads}))`` names each gradient leaf after
 the torch parameter it belongs to. :func:`to_flax_names` is the inverse map
-(a port-trained model back to the flattened flax layout), and
+(a port model, either kind, back to the flattened flax layout), and
 :func:`save_npz` writes it as the ``.npz`` that :func:`load_npz` and the JAX
 package read.
 """
@@ -33,11 +36,15 @@ package read.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 
+from tensorflowasr_tpu_torch.models.chunk_conformer import (
+    ChunkConformer,
+    ChunkConformerConfig,
+)
 from tensorflowasr_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerCTC,
@@ -46,6 +53,9 @@ from tensorflowasr_tpu_torch.models.layers import MultiHeadAttention
 
 _SCAN = "encoder/conformer_blocks/scan/block/"
 _BLOCK = re.compile(r"(?:decoder_)?conformer_block_(\d+)$")
+_CHUNK_BLOCK = re.compile(r"block_(\d+)$")
+
+AnyConfig = Union[ConformerConfig, ChunkConformerConfig]
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -97,18 +107,16 @@ def _convert_leaf(path: list, arr: np.ndarray):
     return renamed[leaf], arr
 
 
-def to_torch_names(flat: Mapping[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
-    """Flattened flax variables of any module of ``models/layers.py`` or
-    ``models/conformer.py`` (``params/...`` and ``batch_stats/...`` names)
-    -> that module's torch state_dict (f32 CPU tensors), unchecked."""
-    flat = _unstack_scanned(dict(flat))
+def _torch_state(flat: Mapping[str, np.ndarray], block: re.Pattern
+                 ) -> Dict[str, torch.Tensor]:
+    """Unstacked flattened flax variables -> torch names: every path
+    segment that ``block`` matches becomes ``blocks.{i}``."""
     state: Dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         coll, *path = name.split("/")
         if coll not in ("params", "batch_stats") or not path:
             raise KeyError(f"unexpected variable {name}")
-        modules = [f"blocks.{m.group(1)}" if (m := _BLOCK.match(p)) else p
+        modules = [f"blocks.{m.group(1)}" if (m := block.match(p)) else p
                    for p in path[:-1]]
         leaf, value = _convert_leaf(path, np.asarray(arr, np.float32))
         key = ".".join(modules + [leaf])
@@ -118,25 +126,62 @@ def to_torch_names(flat: Mapping[str, np.ndarray]
     return state
 
 
-def convert_flat(flat: Mapping[str, np.ndarray], cfg: ConformerConfig
+def to_torch_names(flat: Mapping[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+    """Flattened flax variables of any module of ``models/layers.py`` or
+    ``models/conformer.py`` (``params/...`` and ``batch_stats/...`` names)
+    -> that module's torch state_dict (f32 CPU tensors), unchecked."""
+    return _torch_state(_unstack_scanned(dict(flat)), _BLOCK)
+
+
+def _unstack_chunk(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    out = {}
+    for name, arr in flat.items():
+        parts = name.split("/")
+        if "block" not in parts:
+            items = [(name, arr)]
+        else:
+            i = parts.index("block")
+            items = [("/".join(parts[:i] + [f"block_{layer}"]
+                               + parts[i + 1:]), arr[layer])
+                     for layer in range(arr.shape[0])]
+        for key, value in items:
+            if key in out:
+                raise KeyError(f"{key} is given in both stack layouts")
+            out[key] = value
+    return out
+
+
+def chunk_to_torch_names(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """Flattened flax variables of ``models/chunk_conformer.py``'s modules,
+    in either stack layout -> the torch state_dict, unchecked."""
+    return _torch_state(_unstack_chunk(dict(flat)), _CHUNK_BLOCK)
+
+
+def convert_flat(flat: Mapping[str, np.ndarray], cfg: AnyConfig
                  ) -> Dict[str, torch.Tensor]:
-    """Flattened flax ``ConformerCTC`` variables -> a strict state_dict."""
-    state = to_torch_names(flat)
+    """Flattened flax ``ConformerCTC`` (or, for a ``ChunkConformerConfig``,
+    ``ChunkConformer``) variables -> a strict state_dict."""
+    if isinstance(cfg, ChunkConformerConfig):
+        state = chunk_to_torch_names(flat)
+    else:
+        state = to_torch_names(flat)
     _check_against_model(state, cfg)
     return state
 
 
-def convert_flax_variables(variables: Mapping, cfg: ConformerConfig
+def convert_flax_variables(variables: Mapping, cfg: AnyConfig
                            ) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` nested numpy dicts -> a
-    strict ``ConformerCTC`` state_dict."""
+    strict state_dict of the model ``cfg`` describes."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
     return convert_flat(flatten(dict(variables)), cfg)
 
 
-def load_npz(path: str, cfg: ConformerConfig) -> Dict[str, torch.Tensor]:
+def load_npz(path: str, cfg: AnyConfig) -> Dict[str, torch.Tensor]:
     """A ``.npz`` of flattened flax variables -> a strict state_dict."""
     with np.load(path) as data:
         return convert_flat({k: data[k] for k in data.files}, cfg)
@@ -162,7 +207,7 @@ def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
         return "params", "kernel", arr.T.reshape(-1, h, hd)
     if leaf == "bias":
         return "params", "bias", arr
-    if name == "inp_embedding":
+    if name in ("inp_embedding", "sample_helper"):
         return "params", "embedding", arr
     if arr.ndim == 1:                                       # norm scale
         return "params", "scale", arr
@@ -176,13 +221,15 @@ def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
                    f"{arr.shape}")
 
 
-def to_flax_names(model: ConformerCTC, scan_layers: bool = False
-                  ) -> Dict[str, np.ndarray]:
-    """A torch ``ConformerCTC`` -> its flattened flax variables
-    (``params/...`` and ``batch_stats/...`` names, f32 numpy). With
-    ``scan_layers`` the encoder blocks are stacked on axis 0 under
-    ``conformer_blocks/scan/block``, the layout a JAX model built with
-    ``scan_layers: true`` reads."""
+def to_flax_names(model: Union[ConformerCTC, ChunkConformer],
+                  scan_layers: bool = False) -> Dict[str, np.ndarray]:
+    """A torch ``ConformerCTC`` or ``ChunkConformer`` -> its flattened flax
+    variables (``params/...`` and ``batch_stats/...`` names, f32 numpy).
+    With ``scan_layers`` the blocks are stacked on axis 0, the layout a JAX
+    model built with ``scan_layers: true`` reads: under
+    ``conformer_blocks/scan/block`` for the encoder of a ``ConformerCTC``,
+    under each stack's ``block`` for a ``ChunkConformer``."""
+    chunk = isinstance(model, ChunkConformer)
     heads = {name: (m.num_heads, m.head_size)
              for name, m in model.named_modules()
              if isinstance(m, MultiHeadAttention)}
@@ -192,19 +239,23 @@ def to_flax_names(model: ConformerCTC, scan_layers: bool = False
         coll, flax_leaf, arr = _invert_leaf(
             module_path, leaf, tensor.detach().cpu().float().numpy(), heads)
         parts = module_path.split(".")
-        prefix = "" if parts[0] == "encoder" else "decoder_"
-        path = re.sub(r"blocks/(\d+)", prefix + r"conformer_block_\1",
-                      "/".join(parts))
+        name = "block_" if chunk else ("" if parts[0] == "encoder" else
+                                       "decoder_") + "conformer_block_"
+        path = re.sub(r"blocks/(\d+)", name + r"\1", "/".join(parts))
         flat[f"{coll}/{path}/{flax_leaf}"] = np.ascontiguousarray(arr)
     if not scan_layers:
         return flat
     stacked: Dict[str, list] = {}
     out: Dict[str, np.ndarray] = {}
-    block = re.compile(r"^(\w+)/encoder/conformer_block_(\d+)/(.+)$")
+    if chunk:
+        block, scanned = re.compile(r"^(.*)/block_(\d+)/(.+)$"), "{}/block/{}"
+    else:
+        block = re.compile(r"^(\w+)/encoder/conformer_block_(\d+)/(.+)$")
+        scanned = "{}/" + _SCAN + "{}"
     for name, arr in flat.items():
         m = block.match(name)
         if m:
-            stacked.setdefault(f"{m.group(1)}/{_SCAN}{m.group(3)}",
+            stacked.setdefault(scanned.format(m.group(1), m.group(3)),
                                []).append((int(m.group(2)), arr))
         else:
             out[name] = arr
@@ -214,26 +265,35 @@ def to_flax_names(model: ConformerCTC, scan_layers: bool = False
     return out
 
 
-def save_npz(model: ConformerCTC, path: str, scan_layers: bool = False
-             ) -> None:
+def save_npz(model: Union[ConformerCTC, ChunkConformer], path: str,
+             scan_layers: bool = False) -> None:
     """Write ``model``'s weights as the ``.npz`` of flattened flax variables
     that :func:`load_npz` reads back and the JAX package can unflatten."""
     np.savez(path, **to_flax_names(model, scan_layers))
 
 
+_HEADS = {ConformerConfig: ("ctc_decoder", "translator", ConformerCTC),
+          ChunkConformerConfig: ("phone_picker", "decoder", ChunkConformer)}
+
+
 def num_classes(state: Mapping[str, torch.Tensor]):
     """(phone classes, char classes) read off the two output heads."""
-    return (state["ctc_decoder.fully_connected.weight"].shape[0],
-            state["translator.fully_connected.weight"].shape[0])
+    for phone, char, _ in _HEADS.values():
+        if f"{phone}.fully_connected.weight" in state:
+            return (state[f"{phone}.fully_connected.weight"].shape[0],
+                    state[f"{char}.fully_connected.weight"].shape[0])
+    raise KeyError("no phone head (ctc_decoder or phone_picker) in the "
+                   "state_dict")
 
 
 def _check_against_model(state: Mapping[str, torch.Tensor],
-                         cfg: ConformerConfig) -> None:
-    for head in ("ctc_decoder", "translator"):
+                         cfg: AnyConfig) -> None:
+    phone, char, model_cls = _HEADS[type(cfg)]
+    for head in (phone, char):
         if f"{head}.fully_connected.weight" not in state:
             raise KeyError(f"missing {head}/fully_connected")
     with torch.device("meta"):
-        model = ConformerCTC(cfg, *num_classes(state))
+        model = model_cls(cfg, *num_classes(state))
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     missing = sorted(set(want) - set(state))
     unused = sorted(set(state) - set(want))

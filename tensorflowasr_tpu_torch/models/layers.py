@@ -147,20 +147,35 @@ class BatchNorm(nn.Module):
 
 
 class DepthwiseConv1D(nn.Module):
-    """Depthwise 1-D conv with flax 'SAME' padding on [B, T, C]; weight
-    [C, 1, K] (the JAX kernel [K, 1, C] transposed, not flipped)."""
+    """Depthwise 1-D conv on [B, T, C]; weight [C, 1, K] (the JAX kernel
+    [K, 1, C] transposed, not flipped).
+
+    ``padding`` is flax 'SAME' or "CAUSAL" (K-1 left, 0 right: the chunk
+    modules' form); ``forward``'s ``pad`` = (lo, hi) overrides it, e.g.
+    (0, 0) for a VALID window over a streaming ring that already holds the
+    left context."""
 
     def __init__(self, channels: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "CAUSAL"):
+            raise ValueError(f"DepthwiseConv1D supports padding 'SAME' or "
+                             f"'CAUSAL', got {padding!r}")
         self.kernel_size = kernel_size
+        self.padding = padding
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.zeros(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                pad: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         dt = self.compute_dtype
-        lo, hi = _same_pad(x.shape[1], self.kernel_size, 1)
+        if pad is not None:
+            lo, hi = pad
+        elif self.padding == "CAUSAL":
+            lo, hi = self.kernel_size - 1, 0
+        else:
+            lo, hi = _same_pad(x.shape[1], self.kernel_size, 1)
         y = F.pad(x.to(dt).transpose(1, 2), (lo, hi))
         y = F.conv1d(y, self.weight.to(dt), self.bias.to(dt),
                      groups=self.weight.shape[0])

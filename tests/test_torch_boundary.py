@@ -36,6 +36,10 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_walk_reaches_the_chunk_modules():
+    assert PORT / "models" / "chunk_conformer.py" in FILES
+
+
 def test_every_port_module_imports_without_a_card():
     for path in sorted(PORT.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
