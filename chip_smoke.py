@@ -1,6 +1,6 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
-paths and its chunk-streaming ChunkConformer(S) serving path on one CUDA
-card, and check them.
+paths and its chunk-streaming ChunkConformer(S) serving and training paths
+on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              plain version and ``torch.stft`` at the serve, the request and
              the train shape, each with median, minimum and spread, beside
              that shape's bound, and at the cli buckets (with a CUDA graph
-             replay, since events time the host there).
+             replay, since events time the host there); and K1b (K1 + the
+             plain dB and mel matmul) at the serve shape beside the plain
+             version and ``torch.stft``, each with the same epilogue.
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -52,13 +54,16 @@ Phases, in order; any failure raises and the script exits non-zero:
              steps with a save, then ``cli.eval_am`` from that checkpoint,
              which must restore it and print its JSON of phone and char
              error rates.
-8. chunk_kernel  - K1 'valid' at the chunk path's four shapes (B=1 x 5120,
+8. chunk_kernel  - K1 'valid' at the chunk path's shapes (B=1 x 5120,
              the stream step's mel of [wav tail | chunk]; B=256 x 5120, the
              pool tick's; B=128 x 7 s, the offline batch; B=1 x 8 s, the
-             chunk CLI's offline decode) against its plain version, then
-             timed with the plain version and ``torch.stft`` (left pad
-             1023, ``center=False``) + ``abs()**2``: CUDA events at every
-             shape, and a CUDA graph replay at all but the offline batch.
+             chunk CLI's offline decode; B=128 x 8 s, the chunk train batch;
+             B=8 x 33280 and 64000, the chunk train CLI's buckets; B=2 x
+             20480, the card-against-CPU batch) against its plain version,
+             then all but the last timed with the plain version and
+             ``torch.stft`` (left pad 1023, ``center=False``) +
+             ``abs()**2``: CUDA events at every shape, and a CUDA graph
+             replay at all but the offline batch.
 9. chunk_offline - ChunkConformer(S) from ``configs/chunk_conformerS.yml``
              at full width (``serve/bench_chunk.py``: seeded weights, first
              conv x10, the picker's blank bias moved so about half the
@@ -87,16 +92,40 @@ Phases, in order; any failure raises and the script exits non-zero:
              with the f32 chunk model's weights written as a flax ``.npz``
              for ``--weights``: its streamed phones must equal its offline
              phones, and K1 must run once a chunk.
+13. chunk_train  - ``ChunkTrainer`` built from ``configs/am_data.yml`` +
+             ``configs/chunk_conformerS.yml`` (full width, Adam lr 1e-4),
+             seeded weights calibrated as the serving phases' in training
+             mode (``train/bench_chunk_batch.py``), on B=128 x 8 s of gated
+             tones, 64 phones, 32 chars, 64 extra phones, 32 extra chars, in
+             f32 and bf16: one warm step, 10 steps back to back, then 10
+             timed one by one (median). Every loss must be finite and K1
+             must have run once a step. Prints step time, audio seconds per
+             second, peak memory, the picked share and ``t_ref`` before and
+             after the steps, and (f32) a forward / loss / backward /
+             optimizer split by CUDA events. One more step runs with every
+             implicit host sync reported (``set_sync_debug_mode("warn")``),
+             printed with the port's line that caused it, as a warning;
+             were there none, a step would run with syncs as errors.
+14. chunk_train_card_vs_cpu - one f32 loss + backward of the same
+             calibrated full-width model on B=2 x 1.28 s on the card and on
+             the CPU (plain frontend): the same picks, loss within 1e-4
+             relative, the gradient's global norm within 1e-3 relative.
+15. chunk_train_cli - on phase 7's corpus, ``cli.train_asr`` with
+             ``configs/chunk_conformerS.yml`` at B=8 for 3 steps with a save,
+             then ``cli.eval_am`` and ``cli.test_chunk_asr`` (no
+             ``--weights``) on an 8 s wav, both restoring that checkpoint:
+             error rates finite, streamed phones = offline phones.
 
 K1's launch count is set to 0 just before the ``predict_step`` calls, the
 session's 4 requests, each dtype's train steps, the two CLI calls, each
-chunk phase's timed runs and the chunk CLI call, and read just after each;
-all must have launched it. The stage breakdowns and the card-vs-CPU checks
+chunk phase's timed runs, the chunk CLI call, each dtype's chunk train
+steps and the three chunk train CLI calls, and read just after each; all
+must have launched it. The stage breakdowns and the card-vs-CPU checks
 run outside those windows. K1's times at the request and the train shape go
 on ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel
 phase. The last lines are a JSON line of kernel numbers (K1's times at the
-serve shape, with the request, train, cli and the four 'valid' shapes
-beside them and the largest error over all shapes), then ``{"ok": true,
+serve shape, with the request, train, cli and the 'valid' shapes beside
+them and the largest error over all shapes), then ``{"ok": true,
 "device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
@@ -114,6 +143,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -134,6 +165,10 @@ from tensorflowasr_tpu_torch.train.bench_batch import (
     TRAIN_SECONDS,
     new_trainer,
     train_batch,
+)
+from tensorflowasr_tpu_torch.train.bench_chunk_batch import (
+    chunk_train_batch,
+    new_chunk_trainer,
 )
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -205,11 +240,13 @@ def phase_build() -> None:
         "log_mel_spectrogram_pallas is K1 + the plain dB/mel epilogue")
 
 
-def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False
-            ) -> dict:
+def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
+            log_mel: bool = False) -> dict:
     """Times of K1, its plain version and ``torch.stft`` on one input, and
     the bound for that input; with ``graph`` also K1 replayed from a CUDA
-    graph."""
+    graph. With ``log_mel``, K1b instead (log_mel_spectrogram_pallas's
+    counterpart): each of the three followed by the same plain dB and mel
+    matmul epilogue."""
     from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
 
@@ -222,27 +259,41 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False
     total = (n_frames - 1) * cfg.hop + n_fft
     padded = torch.nn.functional.pad(wav, (lo, total - lo - t))
     window = torch.hann_window(n_fft, periodic=True, device=dev)
+    mel = torch.from_numpy(fe._frontend_constants(cfg)[1]).to(dev)
+
+    def epilogue(power):
+        return torch.matmul(fe._to_db(power, cfg), mel) if log_mel \
+            else power
 
     def library():
         spec = torch.stft(padded, n_fft, cfg.hop, window=window,
                           center=False, return_complex=True)
-        return spec.abs() ** 2
+        return epilogue((spec.abs() ** 2).transpose(1, 2))
 
-    within(library().transpose(1, 2), fe.power_spectrogram_reference(
-        wav, cfg), **POWER_TOL)
-    kernel = cuda_times(lambda: fe.power_spectrogram(wav, cfg), reps, 10)
-    plain = cuda_times(lambda: fe.power_spectrogram_reference(wav, cfg),
-                       max(reps // 5, 5), 2)
+    def kernel_fn():
+        return epilogue(fe.power_spectrogram(wav, cfg))
+
+    within(library(), epilogue(fe.power_spectrogram_reference(wav, cfg)),
+           **(LOGMEL_TOL if log_mel else POWER_TOL))
+    kernel = cuda_times(kernel_fn, reps, 10)
+    plain = cuda_times(
+        lambda: epilogue(fe.power_spectrogram_reference(wav, cfg)),
+        max(reps // 5, 5), 2)
     lib = cuda_times(library, max(reps // 2, 5), 5)
-    replayed = graph_times(lambda: fe.power_spectrogram(wav, cfg), reps,
-                           20) if graph else None
+    replayed = graph_times(kernel_fn, reps, 20) if graph else None
     # The bound counts the least work the function needs: per frame the
     # window product, a real FFT of n_fft points (2.5 n log2 n FLOP, half a
     # complex FFT's 5 n log2 n) and re^2 + im^2 per bin; the wav read once
-    # and the power written once.
-    flops = b * n_frames * (n_fft + 2.5 * n_fft * math.log2(n_fft)
-                            + 3 * n_freq)
-    nbytes = 4.0 * (b * t + b * n_frames * n_freq)
+    # and the power written once. K1b adds the dB (a log, a max and a
+    # scale per bin) and the [n_freq, n_mels] matmul, and writes the
+    # log-mel instead of the power.
+    per_frame = n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freq
+    n_out = n_freq
+    if log_mel:
+        per_frame += 3 * n_freq + 2 * n_freq * cfg.n_mels
+        n_out = cfg.n_mels
+    flops = b * n_frames * per_frame
+    nbytes = 4.0 * (b * t + b * n_frames * n_out)
     by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return {"kernel": kernel, "kernel_graph": replayed, "plain": plain,
             "library": lib, "flops": flops, "bytes": nbytes,
@@ -307,6 +358,15 @@ def phase_kernel() -> dict:
     # the serving shape: 57 MB of wav in, 184 MB of power out, more than the
     # 50 MB L2, so back-to-back launches find their inputs in device memory
     batched = time_k1("same", 128, 7 * SR, reps=50)
+    # K1b at that shape: K1 and the plain dB + mel epilogue, against the
+    # plain power spectrum and torch.stft each with the same epilogue
+    k1b = time_k1("same", 128, 7 * SR, reps=20, log_mel=True)
+    log(f"kernel: K1b log-mel same B=128 T={7 * SR}: K1 + dB + mel "
+        f"{fmt_times(k1b['kernel'])}; plain + dB + mel "
+        f"{fmt_times(k1b['plain'])}; library (torch.stft + abs()**2 + dB + "
+        f"mel) {fmt_times(k1b['library'])}; bound_ms {k1b['bound_ms']:.4f} "
+        f"by {k1b['bound_by']} ({k1b['flops']:.4e} FLOP, "
+        f"{k1b['bytes']:.4e} B)")
     log(f"kernel: K1 same B=128 T={7 * SR} (inputs and outputs exceed the "
         f"L2): kernel {fmt_times(batched['kernel'])}; plain "
         f"{fmt_times(batched['plain'])}; library (torch.stft + abs()**2) "
@@ -351,6 +411,7 @@ def phase_kernel() -> dict:
             f"{times['bound_ms']:.6f} by {times['bound_by']} "
             f"({times['bytes']:.4e} B)")
     result["train_shape"] = k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
+    result["log_mel_serve_shape"] = k1_numbers(128, 7 * SR, k1b)
     result["request_shape"] = dict(
         k1_numbers(1, REQUEST_SAMPLES, request),
         graph_ms=request["kernel_graph"]["median"])
@@ -792,7 +853,12 @@ CLI_CHUNKS = 50                      # the chunk CLI's wav: 8 s, 50 chunks
 CHUNK_K1_SHAPES = {"stream": (1, 2 * CHUNK_SAMPLES),
                    "pool": (POOL_SLOTS, 2 * CHUNK_SAMPLES),
                    "offline": (OFFLINE_B, OFFLINE_SECONDS * SR),
-                   "cli": (1, CLI_CHUNKS * CHUNK_SAMPLES)}
+                   "cli": (1, CLI_CHUNKS * CHUNK_SAMPLES),
+                   "chunk_train": (TRAIN_B, TRAIN_SECONDS * SR)}
+# the chunk train CLI's buckets: the cli phase's, rounded up to whole chunks
+CHUNK_CLI_SHAPES = [(CLI_B, -(-int(s * SR) // CHUNK_SAMPLES) * CHUNK_SAMPLES)
+                    for s in CLI_BUCKET_SECONDS]
+CHUNK_VS_CPU = (2, 8 * CHUNK_SAMPLES)       # the card-against-CPU batch
 
 
 def chunk_models_logged() -> dict:
@@ -811,14 +877,25 @@ def check_share(share: float, what: str) -> None:
 
 
 def phase_chunk_kernel() -> dict:
-    """K1 'valid' at the chunk path's three shapes: held against its plain
+    """K1 'valid' at the chunk path's shapes: held against its plain
     version, then timed with the plain version and ``torch.stft``."""
-    err = max(hold_k1("valid", b, t)[0] for b, t in CHUNK_K1_SHAPES.values())
-    out = {"max_abs_err": err}
+    shapes = [*CHUNK_K1_SHAPES.values(), *CHUNK_CLI_SHAPES, CHUNK_VS_CPU]
+    out = {"max_abs_err": max(hold_k1("valid", b, t)[0] for b, t in shapes)}
+    out["train_cli"] = []
+    for b, t in CHUNK_CLI_SHAPES:
+        times = time_k1("valid", b, t, reps=20, graph=True)
+        out["train_cli"].append(dict(k1_numbers(b, t, times),
+                                     graph_ms=times["kernel_graph"]["median"]))
+        log(f"chunk_kernel: K1 valid B={b} T={t} (a chunk train cli bucket):"
+            f" kernel {fmt_times(times['kernel'])}; kernel replayed from a "
+            f"CUDA graph {fmt_times(times['kernel_graph'])}; plain "
+            f"{fmt_times(times['plain'])}; library {fmt_times(times['library'])}"
+            f"; bound_ms {times['bound_ms']:.6f} by {times['bound_by']} "
+            f"({times['bytes']:.4e} B)")
     for name, (b, t) in CHUNK_K1_SHAPES.items():
         # the stream, pool and cli shapes are 20 KB, 5 MB and 0.5 MB in:
         # events time the host's enqueue rate there, a graph replay the
-        # device's own
+        # device's own; at the train batch both are given
         small = name != "offline"
         times = time_k1("valid", b, t, reps=50, graph=small)
         out[name] = k1_numbers(b, t, times)
@@ -1173,6 +1250,276 @@ def phase_chunk_cli(model) -> int:
 
 
 
+# ---------------------------------------------------------------------------
+# Chunk training: ChunkTrainer on ChunkConformer(S)
+# ---------------------------------------------------------------------------
+
+def picks(trainer, batch) -> tuple:
+    """(picked share, t_ref) of one training-mode forward without
+    gradients; the BatchNorm running statistics stay where they are."""
+    from tensorflowasr_tpu_torch.models.layers import BatchNorm
+    from tensorflowasr_tpu_torch.train.chunk_trainer import label_width
+
+    model = trainer.state.model.train()
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.track_stats = False
+    try:
+        with torch.no_grad():
+            fwd = model.train_forward(batch["wav"], batch["extra_phones"],
+                                      trainer.max_pick,
+                                      label_width=label_width(batch))
+    finally:
+        for m in norms:
+            m.track_stats = True
+    counts = fwd["picked_counts"]
+    share = float(counts.sum()) / (counts.numel()
+                                   * fwd["phone_logits"].shape[1])
+    return share, int(fwd["t_ref"])
+
+
+def sync_points(step) -> dict:
+    """``step()`` once with every implicit host sync reported
+    (``set_sync_debug_mode("warn")``): {(the port's innermost line on the
+    stack, the message): count}."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    found = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "is a prototype feature" in str(message):
+            return                  # set_sync_debug_mode's own notice
+        ours = [f for f in traceback.extract_stack()
+                if "tensorflowasr_tpu_torch" in f.filename]
+        where = (f"{os.path.relpath(ours[-1].filename, root)}:"
+                 f"{ours[-1].lineno}" if ours else f"{filename}:{lineno}")
+        key = (where, str(message).splitlines()[0][:100])
+        found[key] = found.get(key, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found
+
+
+def chunk_train_stage_split(trainer, batch) -> dict:
+    """CUDA-event times of one more chunk ``train_step``'s stages, in ms."""
+    from tensorflowasr_tpu_torch.train.chunk_trainer import (
+        make_chunk_train_step,
+    )
+
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    step = make_chunk_train_step(trainer.max_pick, trainer.txt_ctc_length,
+                                 trainer.loss_reduction, mark=mark)
+    mark("start")
+    step(trainer.state, batch)
+    torch.cuda.synchronize()
+    return {name: round(prev.elapsed_time(ev), 4)
+            for (_, prev), (name, ev) in zip(marks, marks[1:])}
+
+
+def phase_chunk_train(steps: int = 10) -> int:
+    """Returns K1's launches in the chunk ``train_step`` calls alone."""
+    numpy_batch = chunk_train_batch()
+    audio_s = TRAIN_B * TRAIN_SECONDS
+    launches = 0
+    for dtype in ("float32", "bfloat16"):
+        trainer = new_chunk_trainer(dtype, "cuda")
+        state = trainer.state
+        batch = trainer._prepare_batch(numpy_batch)
+        before = picks(trainer, batch)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+
+        def run():
+            _, m = trainer.train_step(state, batch)             # warm
+            torch.cuda.synchronize()
+            losses.append(m["train_loss"])
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, m = trainer.train_step(state, batch)
+                losses.append(m["train_loss"])
+            torch.cuda.synchronize()
+            back = (time.perf_counter() - t0) / steps
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                _, m = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(m["train_loss"])
+            return back
+
+        pipelined, n = k1_counted(run)
+        if n != 2 * steps + 1 or state.step != n:
+            raise AssertionError(f"{state.step} chunk train steps launched "
+                                 f"K1 {n} times")
+        launches += n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        values = [float(v) for v in torch.stack(losses).cpu()]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"non-finite train_loss: {values}")
+        after = picks(trainer, batch)
+        step = statistics.median(times)
+        log(f"chunk_train: train_step {dtype} B={TRAIN_B} x {TRAIN_SECONDS} "
+            f"s, 64 + 64 phones, 32 + 32 chars: {steps} steps back to back "
+            f"{pipelined * 1e3:.3f} ms a step, {audio_s / pipelined:.1f} "
+            f"audio s/s; median {step * 1e3:.3f} ms (min "
+            f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; {steps} "
+            f"steps, each waited for), {audio_s / step:.1f} audio s/s; peak "
+            f"memory {peak:.2f} GiB; K1 launches {n}")
+        log(f"chunk_train: {dtype} train_loss first {values[0]:.4f}, last "
+            f"{values[-1]:.4f}; picked {before[0]:.1%} of the frames, t_ref "
+            f"{before[1]} before the steps, {after[0]:.1%} and t_ref "
+            f"{after[1]} after")
+        if dtype == "float32":
+            log(f"chunk_train: {dtype} stages (ms): "
+                f"{json.dumps(chunk_train_stage_split(trainer, batch))}")
+        found = sync_points(lambda: trainer.train_step(state, batch))
+        if found:
+            log(f"chunk_train: warning: a {dtype} train step waits for the "
+                f"device {sum(found.values())} times: " + "; ".join(
+                    f"{n} x {where} ({msg})"
+                    for (where, msg), n in sorted(found.items())))
+        else:
+            chained(lambda: trainer.train_step(state, batch), 1)
+            log(f"chunk_train: {dtype} train step has no implicit sync")
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_chunk_train_card_vs_cpu() -> None:
+    """One f32 loss + backward of the same weights on the card (K1) and on
+    the CPU (plain frontend), in training mode."""
+    from tensorflowasr_tpu_torch.train.chunk_trainer import (
+        ChunkTrainer,
+        label_width,
+        losses_from_outputs,
+    )
+
+    numpy_batch = chunk_train_batch(CHUNK_VS_CPU[0],
+                                    CHUNK_VS_CPU[1] / SR, 8, 4, 8, 4)
+    card = new_chunk_trainer("float32", "cuda")
+    cpu = ChunkTrainer(card.config, N_PHONE, N_CHAR, device="cpu")
+    cpu.init_state()
+    cpu.state.model.load_state_dict({k: v.cpu() for k, v in
+                                     card.state.model.state_dict().items()})
+    result = {}
+    for name, trainer in (("cuda", card), ("cpu", cpu)):
+        model = trainer.state.model.train()
+        batch = trainer._prepare_batch(numpy_batch)
+        fwd = model.train_forward(batch["wav"], batch["extra_phones"], None,
+                                  label_width=label_width(batch))
+        total, _ = losses_from_outputs(fwd, batch, N_PHONE, N_CHAR)
+        total.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.double().norm() for p in model.parameters()]))
+        result[name] = (float(total.detach()), float(norm),
+                        fwd["picked_counts"].cpu().tolist(),
+                        int(fwd["t_ref"]))
+    (loss_gpu, norm_gpu, picked, t_ref), (loss_cpu, norm_cpu, picked_cpu,
+                                          _) = result["cuda"], result["cpu"]
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    norm_err = abs(norm_gpu - norm_cpu) / norm_cpu
+    log(f"chunk_train: f32 card vs CPU on B={CHUNK_VS_CPU[0]} x "
+        f"{CHUNK_VS_CPU[1] / SR} s, full width: picked {picked} of "
+        f"{CHUNK_VS_CPU[1] // 640} frames on both (t_ref {t_ref}), loss "
+        f"{loss_gpu:.6f} vs {loss_cpu:.6f} (relative {loss_err:.3e}), "
+        f"gradient norm {norm_gpu:.6f} vs {norm_cpu:.6f} (relative "
+        f"{norm_err:.3e})")
+    if picked != picked_cpu or not (math.isfinite(loss_gpu)
+                                    and loss_err <= 1e-4
+                                    and norm_err <= 1e-3):
+        raise AssertionError("the chunk train step on the card disagrees "
+                             f"with the CPU (picks {picked} / {picked_cpu})")
+
+
+def phase_chunk_train_cli() -> int:
+    """``cli.train_asr`` with the chunk config, then ``cli.eval_am`` and
+    ``cli.test_chunk_asr`` restoring its checkpoint. Returns K1's
+    launches."""
+    from tensorflowasr_tpu_torch.cli import eval_am, test_chunk_asr, train_asr
+    from tensorflowasr_tpu_torch.utils.audio import write_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data_yml = write_corpus(tmp)
+        wav_path = os.path.join(tmp, "utt.wav")
+        write_wav(wav_path, tones(CLI_CHUNKS * CHUNK_S, seed=91), SR)
+        common = ["--data_config", data_yml, "--model_config",
+                  os.path.join(root, "configs", "chunk_conformerS.yml"),
+                  "--device", "cuda", "--compute_dtype", "float32"]
+
+        def quiet(main, args):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = main(args)
+            return rc, out.getvalue(), err.getvalue(), \
+                time.perf_counter() - t0
+
+        def run():
+            t0 = time.perf_counter()
+            if train_asr.main(common + ["--total_steps", "3",
+                                        "--data_workers", "2"]) != 0:
+                raise AssertionError("cli.train_asr (chunk) failed")
+            return (time.perf_counter() - t0,
+                    quiet(eval_am.main, common + ["--max_batches", "1"]),
+                    quiet(test_chunk_asr.main, common + ["--wav", wav_path]))
+
+        (t_train, evaluated, tested), launches = k1_counted(run)
+        ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
+        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+    for what, (rc, _, err, _) in (("eval_am", evaluated),
+                                  ("test_chunk_asr", tested)):
+        if rc != 0 or "no checkpoint found" in err:
+            raise AssertionError(f"cli.{what}: rc {rc}, stderr {err[-400:]}")
+    if ckpts != ["ckpt_000000003.pt"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    if [m["step"] for m in logged] != [2] or not math.isfinite(
+            logged[0]["train_loss"]):
+        raise AssertionError(f"metrics.jsonl {logged}")
+    result = json.loads(evaluated[1].strip().splitlines()[-1])
+    for key in ("phone_cer", "phone_ser", "char_cer", "char_ser"):
+        if not math.isfinite(result[key]):
+            raise AssertionError(f"eval_am: {key} = {result[key]}")
+    lines = dict(line.split(":", 1) for line in tested[1].splitlines()
+                 if ":" in line and not line.startswith("audio"))
+    offline, stream = lines["offline phones"].split(), \
+        lines["stream  phones"].split()
+    if stream != offline:
+        raise AssertionError(f"cli.test_chunk_asr: offline phones "
+                             f"{offline[:20]}, streamed {stream[:20]}")
+    # 3 train steps, 1 eval batch; the test CLI's warm-up and timed offline
+    # decode, its warm-up chunk and one launch a chunk
+    if launches != 3 + 1 + 3 + CLI_CHUNKS:
+        raise AssertionError(f"the chunk train CLI calls launched K1 "
+                             f"{launches} times")
+    log(f"chunk_train_cli: train_asr f32, 3 steps of B={CLI_B} in "
+        f"{t_train:.2f} s (train_loss {logged[0]['train_loss']:.3f} at step "
+        f"2), checkpoints {ckpts}; eval_am restored step 3 and scored 1 "
+        f"batch in {evaluated[3]:.2f} s: {json.dumps(result)}; "
+        f"test_chunk_asr restored step 3: streamed phones = offline phones "
+        f"({len(offline)}) on an {CLI_CHUNKS * CHUNK_S:.0f} s wav; "
+        f"{tested[1].strip().splitlines()[-1]}")
+    return launches
+
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1192,6 +1539,10 @@ def main() -> int:
              "pool": phase_chunk_pool(models),
              "cli": phase_chunk_cli(models["float32"])}
     del models
+    torch.cuda.empty_cache()
+    chunk["chunk_train"] = phase_chunk_train()
+    phase_chunk_train_card_vs_cpu()
+    chunk["train_cli"] = phase_chunk_train_cli()
     launches = batched + requested + trained + cli + sum(chunk.values())
     log(f"launches: K1 {launches} on the main path ({batched} in the "
         f"predict_step calls, {requested} in the session's requests, "
@@ -1199,7 +1550,10 @@ def main() -> int:
         f"CLI calls, {chunk['offline']} in the chunk predict calls, "
         f"{chunk['stream']} in the one-stream chunk steps, "
         f"{chunk['pool']} in the pool's ticks and the request check, "
-        f"{chunk['cli']} in the test_chunk_asr CLI call)")
+        f"{chunk['cli']} in the test_chunk_asr CLI call, "
+        f"{chunk['chunk_train']} in the chunk train steps, "
+        f"{chunk['train_cli']} in the chunk train_asr, eval_am and "
+        f"test_chunk_asr CLI calls)")
     if min(batched, requested, trained, cli, *chunk.values()) == 0:
         raise AssertionError("the main path did not launch K1 in every "
                              "phase")
@@ -1217,10 +1571,14 @@ def main() -> int:
         "batch": k1["batch"], "samples": k1["samples"],
         "request_shape": k1["request_shape"],
         "train_shape": k1["train_shape"],
+        # K1b: K1 + the plain dB and mel epilogue, 'same', B=128 x 7 s
+        "log_mel_serve_shape": k1["log_mel_serve_shape"],
         "cli_shapes": k1["cli_shapes"],
         # 'valid' on the chunk path; launches are those of the phase
         "valid_shapes": {key: dict(k1_chunk[key], launches=chunk[key])
                          for key in CHUNK_K1_SHAPES},
+        "valid_train_cli_shapes": {"shapes": k1_chunk["train_cli"],
+                                   "launches": chunk["train_cli"]},
     }
     log(json.dumps({"kernels": [entry]}))
     log(json.dumps({"ok": True, "device": {

@@ -73,25 +73,26 @@ def build_featurizers(config: UserConfig
     return phone_f, char_f, p2p, pin, transcripts_are_pinyin
 
 
-def offline_ctc_setup(args, config: UserConfig):
-    """What ``train_asr`` and ``eval_am`` share: refuse what is not ported,
-    then build the dataloader and the trainer (with fresh random weights)
-    from the config. -> (dataloader, trainer, char featurizer)."""
-    from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
-    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
-
-    name = config.section("model_config")["name"] or "OfflineConformerCTC"
-    if name == "ChunkConformer":
-        raise NotImplementedError(
-            "model_config.name ChunkConformer: chunk training and eval "
-            "(ChunkTrainer, train_forward, chunk_dataloader) are not ported "
-            "yet; they come with the chunk-training slice. The port serves "
-            "the chunk model: cli.test_chunk_asr, ChunkStreamSession, "
-            "MultiStreamChunkServer")
+def _refuse_data_procs(args) -> None:
     if args.data_procs > 0:
         raise NotImplementedError(
             "--data_procs > 0 (process workers, data/mp_prefetch.py) is "
             "not ported yet; use --data_workers threads")
+
+
+def model_name(config: UserConfig) -> str:
+    return config.section("model_config")["name"] or "OfflineConformerCTC"
+
+
+def offline_ctc_setup(args, config: UserConfig):
+    """What ``train_asr`` and ``eval_am`` share for the offline family:
+    refuse what is not ported, then build the dataloader and the trainer
+    (with fresh random weights) from the config. -> (dataloader, trainer,
+    char featurizer)."""
+    from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+
+    _refuse_data_procs(args)
     phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
     dl = AMDataLoader(config, phone_f, char_f, pinyin2phone=p2p, pinyin=pin,
                       transcripts_are_pinyin=pinyin_txt)
@@ -100,3 +101,25 @@ def offline_ctc_setup(args, config: UserConfig):
                          compute_dtype=args.compute_dtype)
     trainer.init_state()
     return dl, trainer, char_f
+
+
+def chunk_setup(args, config: UserConfig):
+    """:func:`offline_ctc_setup` for ``model_config.name: ChunkConformer``:
+    the chunk dataloader and a ``ChunkTrainer`` with fresh random weights.
+    -> (dataloader, trainer)."""
+    from tensorflowasr_tpu_torch.data.chunk_dataloader import (
+        ChunkDataLoader,
+    )
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+
+    _refuse_data_procs(args)
+    phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
+    trainer = ChunkTrainer(config, phone_f.num_classes, char_f.num_classes,
+                           device=args.device,
+                           compute_dtype=args.compute_dtype)
+    dl = ChunkDataLoader(config, phone_f, char_f,
+                         chunk_num=trainer.model_cfg.chunk_num,
+                         pinyin2phone=p2p, pinyin=pin,
+                         transcripts_are_pinyin=pinyin_txt)
+    trainer.init_state()
+    return dl, trainer

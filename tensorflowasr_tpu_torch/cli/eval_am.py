@@ -4,8 +4,10 @@ one JSON object with phone / char SER / CER and S/I/D counts.
     python -m tensorflowasr_tpu_torch.cli.eval_am --data_config D.yml \\
         --model_config M.yml [--max_batches N] [--device cuda|cpu]
 
-Counterpart of ``tensorflowasr_tpu/cli/eval_am.py``. The newest checkpoint
-under ``running_config.outdir``/checkpoints is evaluated (random init with a
+Counterpart of ``tensorflowasr_tpu/cli/eval_am.py``: dispatches on
+``model_config.name`` (``ChunkConformer`` -> ``ChunkTester``, anything else
+-> ``AMTester``). The newest checkpoint under
+``running_config.outdir``/checkpoints is evaluated (random init with a
 warning when there is none). Decoding is greedy: ``--lm`` / ``--word_lm``
 (beam search with n-gram fusion) are not ported yet and raise.
 """
@@ -17,11 +19,13 @@ import sys
 
 from tensorflowasr_tpu_torch.cli.common import (
     add_training_flags,
+    chunk_setup,
     config_parser,
     load_config,
+    model_name,
     offline_ctc_setup,
 )
-from tensorflowasr_tpu_torch.eval.testers import AMTester
+from tensorflowasr_tpu_torch.eval.testers import AMTester, ChunkTester
 
 
 def _one_pass(args, dl) -> int:
@@ -50,11 +54,15 @@ def main(argv=None) -> int:
             "--lm / --word_lm (beam search with n-gram fusion) are not "
             "ported yet; eval_am decodes greedily")
     config = load_config(args)
-    dl, trainer, char_f = offline_ctc_setup(args, config)
+    if model_name(config) == "ChunkConformer":
+        dl, trainer = chunk_setup(args, config)
+        tester = ChunkTester(trainer.predict_step, trainer.state)
+    else:
+        dl, trainer, char_f = offline_ctc_setup(args, config)
+        tester = AMTester(trainer, char_end_id=char_f.endid())
     if not trainer.restore():
         print("warning: no checkpoint found; evaluating random init",
               file=sys.stderr)
-    tester = AMTester(trainer, char_end_id=char_f.endid())
     result = tester.run(dl.generator(train=False),
                         max_batches=_one_pass(args, dl))
     print(json.dumps(result))

@@ -4,11 +4,14 @@
         --model_config M.yml --wav utt.wav [--weights W.npz] \\
         [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
-``--weights`` is a ``.npz`` of the flattened flax variables of a trained
-JAX ``ConformerCTC`` (keys ``params/encoder/.../kernel`` and
+Without ``--weights`` the model is the trainer's (``CTCTrainer`` from the
+configs) restored from the newest checkpoint under
+``running_config.outdir``/checkpoints, which ``cli.train_asr`` writes; with
+none there it decodes a seeded random init and says so on stderr.
+``--weights`` takes precedence: a ``.npz`` of the flattened flax variables
+of a trained JAX ``ConformerCTC`` (keys ``params/encoder/.../kernel`` and
 ``batch_stats/...``, the names ``native_export._flatten`` writes), loaded
-through ``models/convert.py``. Without it the model decodes with a seeded
-random init and says so on stderr.
+through ``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from tensorflowasr_tpu_torch.cli.common import (
 from tensorflowasr_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerCTC,
-    build_model,
 )
 from tensorflowasr_tpu_torch.models.convert import load_npz, num_classes
 from tensorflowasr_tpu_torch.serve.engines import predict_step
+from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 from tensorflowasr_tpu_torch.utils.audio import SpeechFeaturizer
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
@@ -60,10 +63,10 @@ def main(argv=None) -> int:
     # floor, as the training dataloader's input_length
     in_len = max(1, len(wav) // (sf.hop_size * sf.reduction_factor))
 
-    cfg = ConformerConfig.from_user_config(config, args.compute_dtype)
+    want = (phone_f.num_classes, char_f.num_classes)
     if args.weights:
+        cfg = ConformerConfig.from_user_config(config, args.compute_dtype)
         state = load_npz(args.weights, cfg)
-        want = (phone_f.num_classes, char_f.num_classes)
         if num_classes(state) != want:
             raise ValueError(f"--weights has (phone, char) classes "
                              f"{num_classes(state)}, the vocabularies {want}")
@@ -71,10 +74,13 @@ def main(argv=None) -> int:
         model.load_state_dict(state)
         model = model.to(device).eval()
     else:
-        print("warning: no --weights given; decoding with random init",
-              file=sys.stderr)
-        model = build_model(cfg, phone_f.num_classes, char_f.num_classes,
-                            device=device)
+        trainer = CTCTrainer(config, *want, blank_id=phone_f.blank,
+                             device=device, compute_dtype=args.compute_dtype)
+        trainer.init_state()
+        if not trainer.restore():
+            print("warning: no checkpoint found; decoding with random init",
+                  file=sys.stderr)
+        model = trainer.state.model.eval()
 
     wav_t = torch.from_numpy(np.asarray(padded, np.float32)[None]).to(device)
     len_t = torch.tensor([in_len], dtype=torch.int32, device=device)

@@ -6,12 +6,15 @@
         --wav utt.wav [--weights W.npz] [--device cuda|cpu] \\
         [--compute_dtype float32|bfloat16]
 
-``--weights`` is a ``.npz`` of the flattened flax variables of a trained
-JAX ``ChunkConformer`` (keys ``params/encoder/block_0/.../kernel`` or the
-scanned ``params/encoder/block/...``, and ``batch_stats/...``), loaded
-through ``models/convert.py``. Without it the model decodes with a seeded
-random init and says so on stderr. The two decodes agree: streaming from a
-cold start equals the offline path.
+Without ``--weights`` the model is the trainer's (``ChunkTrainer`` from the
+configs) restored from the newest checkpoint under
+``running_config.outdir``/checkpoints, which ``cli.train_asr`` writes; with
+none there it decodes a seeded random init and says so on stderr.
+``--weights`` takes precedence: a ``.npz`` of the flattened flax variables
+of a trained JAX ``ChunkConformer`` (keys ``params/encoder/block_0/...`` or
+the scanned ``params/encoder/block/...``, and ``batch_stats/...``), loaded
+through ``models/convert.py``. The two decodes agree: streaming from a cold
+start equals the offline path.
 """
 
 from __future__ import annotations
@@ -27,18 +30,14 @@ from tensorflowasr_tpu_torch.cli.common import (
     config_parser,
     load_config,
 )
-from tensorflowasr_tpu_torch.models.chunk_conformer import (
-    ChunkConformer,
-    ChunkConformerConfig,
-    build_chunk_model,
-)
+from tensorflowasr_tpu_torch.models.chunk_conformer import ChunkConformer
 from tensorflowasr_tpu_torch.models.convert import load_npz, num_classes
 from tensorflowasr_tpu_torch.serve.chunk_session import ChunkStreamSession
 from tensorflowasr_tpu_torch.train.chunk_trainer import (
+    ChunkTrainer,
     make_chunk_predict_step,
 )
 from tensorflowasr_tpu_torch.utils.audio import read_wav
-from tensorflowasr_tpu_torch.utils.config import cfg_get
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 
@@ -61,7 +60,9 @@ def main(argv=None) -> int:
     phone_f, char_f = build_featurizers(config)[:2]
     want = (phone_f.num_classes, char_f.num_classes)
 
-    cfg = ChunkConformerConfig.from_user_config(config, args.compute_dtype)
+    trainer = ChunkTrainer(config, *want, device=device,
+                           compute_dtype=args.compute_dtype)
+    cfg = trainer.model_cfg
     if args.weights:
         state = load_npz(args.weights, cfg)
         if num_classes(state) != want:
@@ -71,9 +72,11 @@ def main(argv=None) -> int:
         model.load_state_dict(state)
         model = model.to(device).eval()
     else:
-        print("warning: no --weights given; decoding with random init",
-              file=sys.stderr)
-        model = build_chunk_model(cfg, *want, device=device)
+        trainer.init_state()
+        if not trainer.restore():
+            print("warning: no checkpoint found; decoding with random init",
+                  file=sys.stderr)
+        model = trainer.state.model.eval()
 
     wav, _ = read_wav(args.wav, target_sr=cfg.sample_rate)
     cs = cfg.chunk_samples
@@ -83,9 +86,7 @@ def main(argv=None) -> int:
     audio_s = len(wav) / cfg.sample_rate
 
     # offline
-    step = make_chunk_predict_step(
-        model, None, cfg_get(config["running_config"] or {},
-                             "txt_ctc_length", "padded"))
+    step = make_chunk_predict_step(model, None, trainer.txt_ctc_length)
     wav_t = torch.from_numpy(padded[None]).to(device)
     len_t = torch.tensor([n_chunks * cfg.sub_length], dtype=torch.int32,
                          device=device)

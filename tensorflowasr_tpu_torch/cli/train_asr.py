@@ -1,14 +1,16 @@
-"""ASR training CLI for the offline Conformer-CTC family.
+"""ASR training CLI for the offline Conformer-CTC family and the
+chunk-streaming ChunkConformer.
 
     python -m tensorflowasr_tpu_torch.cli.train_asr --data_config D.yml \\
         --model_config M.yml [--total_steps N] [--data_workers N] \\
         [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
-Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: resumes from the
-newest checkpoint under ``running_config.outdir``/checkpoints when there is
-one, trains ``--total_steps`` steps, logs to ``metrics.jsonl`` and saves at
-the configured intervals. ``model_config.name: ChunkConformer`` and
-``--data_procs`` > 0 are not ported yet and raise.
+Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: dispatches on
+``model_config.name`` (``ChunkConformer`` -> ``ChunkTrainer`` on the chunk
+dataloader, anything else -> ``CTCTrainer``), resumes from the newest
+checkpoint under ``running_config.outdir``/checkpoints when there is one,
+trains ``--total_steps`` steps, logs to ``metrics.jsonl`` and saves at the
+configured intervals. ``--data_procs`` > 0 is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import sys
 
 from tensorflowasr_tpu_torch.cli.common import (
     add_training_flags,
+    chunk_setup,
     config_parser,
     load_config,
+    model_name,
     offline_ctc_setup,
 )
 
@@ -28,7 +32,10 @@ def main(argv=None) -> int:
     add_training_flags(parser)
     args = parser.parse_args(argv)
     config = load_config(args)
-    dl, trainer, _ = offline_ctc_setup(args, config)
+    if model_name(config) == "ChunkConformer":
+        dl, trainer = chunk_setup(args, config)
+    else:
+        dl, trainer, _ = offline_ctc_setup(args, config)
     trainer.restore()
     train_iter = dl.generator(train=True, num_workers=args.data_workers,
                               prefetch_depth=2 if args.data_workers else 0)

@@ -1,8 +1,8 @@
 """Evaluation harness: phone and char SER / CER with S/I/D breakdowns.
 
-Counterpart of ``AMTester`` in ``tensorflowasr_tpu/eval/testers.py``: drives
-the trainer's predict step over an eval iterator and accumulates streaming
-metrics on the host.
+Counterpart of ``AMTester`` and ``ChunkTester`` in
+``tensorflowasr_tpu/eval/testers.py``: drives a predict step over an eval
+iterator and accumulates streaming metrics on the host.
 
     tester.run(batch_iter, max_batches) -> dict of final metrics
 """
@@ -10,7 +10,7 @@ metrics on the host.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -22,6 +22,12 @@ logger = logging.getLogger(__name__)
 
 def _trim_pad(ids: np.ndarray, length: int) -> list:
     return list(ids[:length])
+
+
+def _result(phone_acc: ErrorRateAccumulator,
+            char_acc: ErrorRateAccumulator) -> dict:
+    return {**{f"phone_{k}": v for k, v in phone_acc.result().items()},
+            **{f"char_{k}": v for k, v in char_acc.result().items()}}
 
 
 class AMTester:
@@ -80,6 +86,48 @@ class AMTester:
         return out
 
     def result(self) -> dict:
-        return {**{f"phone_{k}": v for k, v in
-                   self.phone_acc.result().items()},
-                **{f"char_{k}": v for k, v in self.char_acc.result().items()}}
+        return _result(self.phone_acc, self.char_acc)
+
+
+class ChunkTester:
+    """ChunkConformer offline eval: phone SER/CER from the picker's greedy
+    CTC and char SER/CER from the decoder on the picked frames.
+    ``predict_step`` is ``ChunkTrainer.predict_step``: (state, wav,
+    input_length) -> (char_ids, char_lens, phone_ids, phone_lens)."""
+
+    def __init__(self, predict_step: Callable, state, log_every: int = 20):
+        self.predict_step = predict_step
+        self.state = state
+        self.log_every = log_every
+        self.phone_acc = ErrorRateAccumulator("cer")
+        self.char_acc = ErrorRateAccumulator("cer")
+
+    def run(self, batch_iter: Iterable[Dict[str, np.ndarray]],
+            max_batches: Optional[int] = None) -> dict:
+        self.phone_acc.reset()
+        self.char_acc.reset()
+        device = next(self.state.model.parameters()).device
+        for step, batch in enumerate(batch_iter):
+            if max_batches is not None and step >= max_batches:
+                break
+            wav = torch.from_numpy(np.asarray(batch["wav"])).to(device)
+            in_len = torch.from_numpy(
+                np.asarray(batch["input_length"])).to(device)
+            char_ids, char_lens, phone_ids, phone_lens = (
+                x.cpu().numpy() for x in self.predict_step(self.state, wav,
+                                                           in_len))
+            for i in range(wav.shape[0]):
+                self.phone_acc.update(
+                    _trim_pad(batch["phones"][i],
+                              int(batch["phone_length"][i])),
+                    _trim_pad(phone_ids[i], int(phone_lens[i])))
+                self.char_acc.update(
+                    _trim_pad(batch["chars"][i],
+                              int(batch["char_length"][i])),
+                    _trim_pad(char_ids[i], int(char_lens[i])))
+            if (step + 1) % self.log_every == 0:
+                logger.info("eval step %d: %s", step + 1, self.result())
+        return self.result()
+
+    def result(self) -> dict:
+        return _result(self.phone_acc, self.char_acc)

@@ -4,7 +4,8 @@ Counterpart of ``tensorflowasr_tpu/models/chunk_conformer.py``. Streaming
 state is a dict of fixed-size tensors (ring buffers) with the JAX package's
 keys and layouts, zero at a cold start:
 
-- ChunkFront             'valid' (causal) log-mel, K1 on a CUDA tensor, and
+- ChunkFront             'valid' (causal) log-mel, K1 on a CUDA tensor,
+                         SpecAugment in training, and
                          ChunkConvSubsampling; state: the last chunk of wav
                          [B, chunk_samples] and a mel tail [B, chunk/rf,
                          n_mels, 1]
@@ -22,7 +23,8 @@ keys and layouts, zero at a cold start:
 - feature_pick           stable compaction of the frames whose phone argmax
                          is not blank
 - ChunkConformer         front -> encoder -> picker -> feature_pick ->
-                         helper -> char decoder
+                         helper -> char decoder; ``train_forward`` adds the
+                         text-only branch (helper.phone_call -> decoder)
 
 A zero row in a cache is exactly the offline zero padding for the wav and
 mel tails and for the conv ring (the conv input is zeroed where invalid);
@@ -39,9 +41,14 @@ value back to the host.
 
 ``scan_layers`` and ``scan_unroll`` choose how the JAX package traces a
 stack; eager PyTorch runs the same unrolled blocks either way. Each stack
-runs its blocks on an f32 input, as the scanned JAX stack does. This module
-serves: training mode (dropout aside) raises until the chunk trainer is
-ported, and so do ``fused_decoder: true`` and SpecAugment.
+runs its blocks on an f32 input, as the scanned JAX stack does.
+
+Training mode (``model.train()``) turns on dropout, SpecAugment (with
+``spec_augment``) and batch-statistics BatchNorm; a ``t_valid`` width
+restricts the conv modules' BatchNorm statistics to the first ``t_valid``
+rows, as the JAX package's masked BatchNorm. Random draws come from the
+generator handed over with ``layers.set_generator``. ``fused_decoder: true``
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from tensorflowasr_tpu_torch.models.layers import (
     init_weights_,
 )
 from tensorflowasr_tpu_torch.ops import frontend as fe
+from tensorflowasr_tpu_torch.ops.specaug import spec_augment
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 N_FFT = 1024
@@ -118,7 +126,12 @@ class ChunkConformerConfig:
     mel_layer_trainable: bool = False
     stride_ms: int = 10
     chunk_num: int = 16           # mel frames per streaming step
-    spec_augment: bool = False    # training only
+    # SpecAugment on the 'valid' log-mel, training only (ops/specaug.py)
+    spec_augment: bool = False
+    specaug_freq_masks: int = 2
+    specaug_freq_width: int = 27
+    specaug_time_masks: int = 2
+    specaug_time_ratio: float = 0.05
     # stacks
     encoder: ChunkStackConfig = ChunkStackConfig(num_blocks=15)
     picker: ChunkStackConfig = ChunkStackConfig(num_blocks=1)
@@ -169,6 +182,10 @@ class ChunkConformerConfig:
             stride_ms=front.get("stride_ms", 10),
             chunk_num=front.get("chunk_num", 16),
             spec_augment=front.get("spec_augment", False),
+            specaug_freq_masks=front.get("specaug_freq_masks", 2),
+            specaug_freq_width=front.get("specaug_freq_width", 27),
+            specaug_time_masks=front.get("specaug_time_masks", 2),
+            specaug_time_ratio=front.get("specaug_time_ratio", 0.05),
             fused_decoder=mc.get("fused_decoder", False),
             encoder=stack(mc.get("ChunkConformerEncoder"), num_blocks=15),
             picker=stack(mc.get("ChunkCTCPicker"), num_blocks=1),
@@ -177,12 +194,6 @@ class ChunkConformerConfig:
             helper=stack(mc.get("ContextHelper"), num_blocks=2),
             dtype_str=dtype_str,
         )
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (it comes with the chunk-training "
-        f"slice: ChunkTrainer, train_forward, chunk_dataloader)")
 
 
 # ---------------------------------------------------------------------------
@@ -376,10 +387,15 @@ class ChunkConv(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 t_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training and t_valid is not None:
-            raise _not_ported("BatchNorm statistics masked to t_valid")
-        y = glu(self.pw_conv_1(self.ln(x)))
-        y = self.bn(self.dw_pw(self.dw_conv(y)))
+        y = self.dw_pw(self.dw_conv(glu(self.pw_conv_1(self.ln(x)))))
+        mask = None
+        if t_valid is not None:
+            # a width-t_valid buffer emulated on a width-t one: rows at or
+            # past t_valid do not exist, so they stay out of the batch
+            # statistics (the causal conv keeps them out of earlier rows)
+            mask = (torch.arange(y.shape[1], device=y.device)
+                    < t_valid)[None, :, None]
+        y = self.bn(y, mask)
         return x + self.dropout(self.pw_conv_2(F.silu(y)))
 
     def stream_call(self, x: torch.Tensor, cache: torch.Tensor,
@@ -499,12 +515,15 @@ class ChunkConvSubsampling(nn.Module):
 
 class ChunkFront(nn.Module):
     """'valid' log-mel + ChunkConvSubsampling. On a CUDA tensor the mel's
-    power spectrum is the K1 kernel. The streaming wav tail starts at
-    zero, which is the offline 'valid' left pad."""
+    power spectrum is the K1 kernel. In training mode with
+    ``spec_augment`` the log-mel is masked (``ops/specaug.py``) with bands
+    drawn from ``generator``. The streaming wav tail starts at zero, which
+    is the offline 'valid' left pad."""
 
     def __init__(self, cfg: ChunkConformerConfig):
         super().__init__()
         self.cfg = cfg
+        self.generator: Optional[torch.Generator] = None   # SpecAugment
         self.conv_subsampling = ChunkConvSubsampling(
             cfg.dmodel, cfg.n_mels, cfg.chunk_num, cfg.reduction_factor,
             cfg.front_dropout, cfg.dtype)
@@ -524,9 +543,18 @@ class ChunkFront(nn.Module):
                                       mel_weights=self.freq2mel)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        if self.training and self.cfg.spec_augment:
-            raise _not_ported("SpecAugment in the chunk front")
-        return self.conv_subsampling(self._mel(wav)[..., None])
+        c = self.cfg
+        mel = self._mel(wav)
+        if self.training and c.spec_augment:
+            if self.generator is None:
+                raise RuntimeError("training-mode SpecAugment needs a "
+                                   "generator: call set_generator first")
+            mel = spec_augment(
+                mel, self.generator, n_freq_masks=c.specaug_freq_masks,
+                freq_width=c.specaug_freq_width,
+                n_time_masks=c.specaug_time_masks,
+                time_ratio=c.specaug_time_ratio)
+        return self.conv_subsampling(mel[..., None])
 
     def stream_call(self, wav: torch.Tensor, wav_cache: torch.Tensor,
                     sub_cache: torch.Tensor):
@@ -643,6 +671,7 @@ class ContextHelper(nn.Module):
         return self.stack(x, t_valid)
 
     def phone_call(self, phone_ids: torch.Tensor):
+        """The text-only branch: (embedded phones, the stack on them)."""
         emb = F.embedding(phone_ids.long(), self.sample_helper.weight)
         emb = emb.to(self.compute_dtype)
         return emb, self.stack(emb)
@@ -731,6 +760,46 @@ class ChunkConformer(nn.Module):
     def encode_to_phones(self, wav: torch.Tensor):
         """front -> encoder -> picker: (phone_logits, hidden)."""
         return self.phone_picker(self.encoder(self.front(wav)))
+
+    def train_forward(self, wav: torch.Tensor, extra_phones: torch.Tensor,
+                      max_pick: Optional[int],
+                      label_width: Union[int, torch.Tensor, None] = None
+                      ) -> Dict[str, Optional[torch.Tensor]]:
+        """The three-branch forward of a train or eval step, in the
+        model's current mode.
+
+        ``max_pick=None`` lets every encoder frame be picked, and the
+        helper and the decoder on the picked frames run at the width
+        ``t_ref = clip(max(max(picked_counts), label_width), 1, T)`` (a
+        device tensor, through ``t_valid``: attention keys and BatchNorm
+        statistics stop there), the reference's grown pick buffer.
+        ``label_width`` (the batch's longest phone label) is then required
+        in training: without it the picked branch would run on the whole
+        buffer, padding in its BatchNorm statistics. An int ``max_pick``
+        caps the buffer and ``t_ref`` is None.
+
+        Returns phone_logits [B, T, Vp], picked_counts [B], txt_logits
+        [B, cap, Vc] (the decoder on helper(picked)), help_logits [B, Le,
+        Vc] (the decoder on helper.phone_call(extra_phones)) and t_ref."""
+        if self.training and max_pick is None and label_width is None:
+            raise ValueError("train_forward with max_pick=None needs "
+                             "label_width in training")
+        phone_logits, hidden = self.encode_to_phones(wav)
+        picked_f, _, counts = feature_pick(hidden, phone_logits,
+                                           self.phone_blank, max_pick)
+        t_ref = None
+        if max_pick is None and label_width is not None:
+            t_ref = torch.clamp(counts.max().clamp_min(label_width), 1,
+                                picked_f.shape[1])
+        # the JAX package's order, so that BatchNorm running statistics
+        # move in the same sequence
+        _, helper_out = self.helper.phone_call(extra_phones)
+        picked_help = self.helper(picked_f, t_ref)
+        txt_logits, _ = self.decoder(picked_help, t_ref)
+        help_logits, _ = self.decoder(helper_out)
+        return {"phone_logits": phone_logits, "picked_counts": counts,
+                "txt_logits": txt_logits, "help_logits": help_logits,
+                "t_ref": t_ref}
 
     def predict(self, wav: torch.Tensor, max_pick: Optional[int]):
         """Offline inference: (char logits over the picked frames, phone

@@ -111,12 +111,15 @@ class BatchNorm(nn.Module):
     axis, in f32.
 
     Eval mode normalizes with the running statistics. Training mode
-    normalizes with the batch statistics over every leading axis (padded
-    frames count, there is no length mask), with the variance flax computes,
-    ``max(E[x^2] - E[x]^2, 0)`` (biased); the gradient flows through the
-    statistics. The running statistics then move by a factor 0.01 toward
-    the batch mean and that same biased variance, unless ``track_stats`` is
-    off (a recomputed forward under ``remat_blocks`` must not count twice).
+    normalizes with the batch statistics over every leading axis, with the
+    variance flax computes, ``max(E[x^2] - E[x]^2, 0)`` (biased); the
+    gradient flows through the statistics. A ``mask`` (bool, broadcastable
+    to ``x.shape[:-1] + (1,)``, e.g. [B, T, 1]) restricts the statistics to
+    the rows it marks, as flax's ``BatchNorm(mask=...)``; every row is still
+    normalized with them. The running statistics then move by a factor 0.01
+    toward the batch mean and that same biased variance, unless
+    ``track_stats`` is off (a recomputed forward under ``remat_blocks`` must
+    not count twice). Eval mode ignores the mask.
     ``torch.nn.functional.batch_norm`` is not used: it records the unbiased
     variance."""
 
@@ -130,14 +133,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
         self.track_stats = True
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x.to(torch.float32)
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            if mask is None:
+                mean = x.mean(dim=axes)
+                mean_sq = (x * x).mean(dim=axes)
+            else:
+                w = mask.to(torch.float32).expand(*x.shape[:-1], 1)
+                count = w.sum()
+                mean = (x * w).sum(dim=axes) / count
+                mean_sq = (x * x * w).sum(dim=axes) / count
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             if self.track_stats:
                 with torch.no_grad():
                     self.running_mean.lerp_(mean, 1.0 - self.MOMENTUM)

@@ -18,7 +18,7 @@ decoder micro-steps run on real rows.
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ from tensorflowasr_tpu_torch.models.chunk_conformer import (
     ChunkConformerConfig,
     build_chunk_model,
 )
+from tensorflowasr_tpu_torch.models.layers import BatchNorm
 from tensorflowasr_tpu_torch.train.bench_batch import N_CHAR, N_PHONE, SR
 from tensorflowasr_tpu_torch.utils.config import UserConfig
 
@@ -53,14 +54,20 @@ def tones(seconds: float, seed: int) -> np.ndarray:
     return (0.3 * wav).astype(np.float32)
 
 
+def shipped_chunk_config() -> UserConfig:
+    """``configs/am_data.yml`` + ``configs/chunk_conformerS.yml`` of this
+    checkout."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return UserConfig(os.path.join(root, "configs", "am_data.yml"),
+                      os.path.join(root, "configs", "chunk_conformerS.yml"))
+
+
 def chunk_config(dtype: str) -> ChunkConformerConfig:
     """The shipped chunk config of this checkout; raises unless it has the
     full width."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    cfg = ChunkConformerConfig.from_user_config(UserConfig(
-        os.path.join(root, "configs", "am_data.yml"),
-        os.path.join(root, "configs", "chunk_conformerS.yml")), dtype)
+    cfg = ChunkConformerConfig.from_user_config(shipped_chunk_config(),
+                                                dtype)
     got = dict(dmodel=cfg.dmodel, encoder_blocks=cfg.encoder.num_blocks,
                picker_blocks=cfg.picker.num_blocks,
                helper_blocks=cfg.helper.num_blocks,
@@ -73,6 +80,34 @@ def chunk_config(dtype: str) -> ChunkConformerConfig:
     return cfg
 
 
+@torch.no_grad()
+def calibrate(model: ChunkConformer, training: bool = False,
+              wav: Optional[np.ndarray] = None) -> float:
+    """Gain the first conv 10x and move the picker's blank bias by the
+    median margin of the blank logit over the other classes on ``wav``
+    (4 x 4 s of warm-up signals by default). The margin is taken in eval
+    mode, or with ``training`` in training mode (BatchNorm on the batch's
+    statistics, its running statistics left alone), the mode the model is
+    then used in. Returns the bias's move."""
+    mode = model.training
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    model.train(training)
+    for m in norms:
+        m.track_stats = False
+    blank = model.phone_blank
+    if wav is None:
+        wav = np.stack([tones(4.0, seed=60 + i) for i in range(4)])
+    warm = torch.from_numpy(wav).to(model.device)
+    model.front.conv_subsampling.conv1.weight.mul_(10.0)
+    logits, _ = model.encode_to_phones(warm)
+    margin = (logits[..., blank] - logits[..., :blank].amax(-1)).median()
+    model.phone_picker.fully_connected.bias[blank] -= margin
+    for m in norms:
+        m.track_stats = True
+    model.train(mode)
+    return -float(margin)
+
+
 def chunk_models(device="cuda", seed: int = 0
                  ) -> Tuple[Dict[str, ChunkConformer], float]:
     """-> ({"float32": model, "bfloat16": model} with the same weights, the
@@ -80,15 +115,7 @@ def chunk_models(device="cuda", seed: int = 0
     f32 = build_chunk_model(chunk_config("float32"), N_PHONE, N_CHAR,
                             device=device, seed=seed)
     dev = f32.device
-    blank = N_PHONE - 1
-    warm = torch.from_numpy(np.stack([tones(4.0, seed=60 + i)
-                                      for i in range(4)])).to(dev)
-    with torch.no_grad():
-        f32.front.conv_subsampling.conv1.weight.mul_(10.0)
-        logits, _ = f32.encode_to_phones(warm)
-        margin = (logits[..., blank] - logits[..., :blank].amax(-1)).median()
-        f32.phone_picker.fully_connected.bias[blank] -= margin
+    moved = calibrate(f32)
     bf16 = ChunkConformer(chunk_config("bfloat16"), N_PHONE, N_CHAR)
     bf16.load_state_dict(f32.state_dict())
-    return {"float32": f32, "bfloat16": bf16.to(dev).eval()}, \
-        -float(margin)
+    return {"float32": f32, "bfloat16": bf16.to(dev).eval()}, moved

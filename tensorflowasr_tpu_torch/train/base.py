@@ -59,13 +59,13 @@ class TrainerBase:
         return self.checkpoint_manager.restore_latest(self.state) is not None
 
     def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """numpy batch -> tensors on the trainer's device. The two length
-        vectors the CTC loss reads on the host also stay behind as
-        ``*_host`` CPU tensors, so the step needs no copy back."""
+        """numpy batch -> tensors on the trainer's device. The length
+        vectors the CTC losses read on the host also stay behind as
+        ``*_host`` CPU tensors, so the step needs no copy back for them."""
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if k in ("input_length", "phone_length"):
+            if k.endswith("_length"):
                 out[k + "_host"] = t
             out[k] = t.to(self.device, non_blocking=True)
         return out

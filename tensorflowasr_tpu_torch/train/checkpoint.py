@@ -4,7 +4,8 @@ Counterpart of ``tensorflowasr_tpu/train/checkpoint.py`` without orbax: the
 state's ``state_dict()`` (model parameters and BatchNorm buffers, optimizer
 moments, step, generator state) goes through ``torch.save`` to a temporary
 name in the same directory and is renamed into place, so a reader never sees
-half a file. The newest ``max_to_keep`` steps are kept.
+half a file. The newest ``max_to_keep`` steps are kept. The directory is
+made by the first save, so looking for a checkpoint creates nothing.
 """
 
 from __future__ import annotations
@@ -22,16 +23,18 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 10):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:09d}.pt")
 
     def all_steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in
                       map(_NAME.match, os.listdir(self.directory)) if m)
 
     def save(self, step: int, state: Any) -> None:
+        os.makedirs(self.directory, exist_ok=True)
         path = self._path(step)
         tmp = f"{path}.tmp.{os.getpid()}"
         try:

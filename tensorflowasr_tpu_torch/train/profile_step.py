@@ -1,11 +1,16 @@
-"""Profile the full-width CTC train step on one CUDA card.
+"""Profile the full-width train step on one CUDA card.
 
-    python3 -m tensorflowasr_tpu_torch.train.profile_step [--dtype bfloat16]
+    python3 -m tensorflowasr_tpu_torch.train.profile_step \
+        [--model offline|chunk] [--dtype bfloat16|float32]
 
-Builds ``CTCTrainer`` from ``configs/am_data.yml`` + ``configs/conformerS.yml``
-with seeded weights, takes warm steps on the training benchmark's batch
-(B = 128 x 8 s of noise, 64 phones, 32 chars), then traces ``--steps`` steps
-enqueued back to back with ``torch.profiler`` and prints
+``--model offline`` (the default) builds ``CTCTrainer`` from
+``configs/am_data.yml`` + ``configs/conformerS.yml`` with seeded weights on
+the training benchmark's batch (``train/bench_batch.py``: B = 128 x 8 s of
+noise, 64 phones, 32 chars); ``--model chunk`` builds ``ChunkTrainer`` from
+``configs/chunk_conformerS.yml`` on the chunk training benchmark's batch
+(``train/bench_chunk_batch.py``: B = 128 x 8 s of gated tones, 64 + 64
+phones, 32 + 32 chars, the picker calibrated). Takes warm steps, then traces
+``--steps`` steps enqueued back to back with ``torch.profiler`` and prints
 ``utils/profiling.py::trace``'s summary (wall and device time a step,
 device-busy share, kernels a step, the top kernels) after the card's name
 and power limit. Raises without CUDA, and if the trace holds no device time.
@@ -22,11 +27,17 @@ from tensorflowasr_tpu_torch.train.bench_batch import (
     new_trainer,
     train_batch,
 )
+from tensorflowasr_tpu_torch.train.bench_chunk_batch import (
+    chunk_train_batch,
+    new_chunk_trainer,
+)
 from tensorflowasr_tpu_torch.utils.profiling import card_line, trace
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", default="offline",
+                        choices=["offline", "chunk"])
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--steps", type=int, default=5)
@@ -34,9 +45,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     card_line()
 
-    trainer = new_trainer(args.dtype, "cuda")
+    if args.model == "chunk":
+        trainer = new_chunk_trainer(args.dtype, "cuda")
+        batch = trainer._prepare_batch(chunk_train_batch())
+    else:
+        trainer = new_trainer(args.dtype, "cuda")
+        batch = trainer._prepare_batch(train_batch())
     state = trainer.state
-    batch = trainer._prepare_batch(train_batch())
     for _ in range(3):
         trainer.train_step(state, batch)
 
@@ -44,8 +59,8 @@ def main(argv=None) -> int:
         for _ in range(args.steps):
             trainer.train_step(state, batch)
 
-    trace(run, args.steps, f"train_step {args.dtype} B={TRAIN_B} x "
-          f"{TRAIN_SECONDS} s, back to back", "step", args.top)
+    trace(run, args.steps, f"{args.model} train_step {args.dtype} "
+          f"B={TRAIN_B} x {TRAIN_SECONDS} s, back to back", "step", args.top)
     return 0
 
 

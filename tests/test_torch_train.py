@@ -658,12 +658,63 @@ def test_cli_refuses_what_is_not_ported(configs):
         eval_main(common + ["--lm", "lm.npz"])
     with pytest.raises(NotImplementedError, match="not ported"):
         eval_main(common + ["--word_lm", "lm.arpa"])
-    chunk = dict(model_cfg["model_config"], name="ChunkConformer")
+    # the chunk model trains; its vectorized decoder phase is not ported
+    chunk = dict(model_cfg["model_config"], name="ChunkConformer",
+                 fused_decoder=True)
     chunk_yml = tmp_path / "chunk.yml"
     chunk_yml.write_text(yaml.dump({"model_config": chunk}))
     with pytest.raises(NotImplementedError, match="not ported"):
         train_main(["--data_config", data_yml, "--model_config",
                     str(chunk_yml), "--device", "cpu"])
+
+
+def test_test_asr_cli_restores_the_trained_checkpoint(configs, capsys):
+    """``cli.test_asr`` without ``--weights`` decodes with the checkpoint
+    that ``cli.train_asr`` wrote: the ids the trainer's own predict step
+    gives on the restored state."""
+    tmp_path, data_yml, model_yml, _ = configs
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.cli.test_asr import main as test_main
+    from tensorflowasr_tpu_torch.cli.train_asr import main as train_main
+    from tensorflowasr_tpu_torch.utils.audio import SpeechFeaturizer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    common = ["--data_config", data_yml, "--model_config", model_yml,
+              "--compute_dtype", "float32", "--device", "cpu"]
+    # the fixture saves every 4 steps
+    assert train_main(common + ["--total_steps", "4",
+                                "--data_workers", "0"]) == 0
+    capsys.readouterr()
+    wav_path = str(tmp_path / "u1.wav")
+    assert test_main(common + ["--wav", wav_path]) == 0
+    captured = capsys.readouterr()
+    assert "random init" not in captured.err
+
+    config = UserConfig(data_yml, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = ttrain.CTCTrainer(config, phone_f.num_classes,
+                                char_f.num_classes, phone_f.blank,
+                                device="cpu", compute_dtype="float32")
+    trainer.init_state()
+    assert trainer.restore() and trainer.state.step == 4
+    sf = SpeechFeaturizer(config["speech_config"])
+    wav = sf.load_wav(wav_path)
+    padded = sf.pad_signal(wav)
+    padded = padded / np.abs(padded).max()
+    in_len = len(wav) // (sf.hop_size * sf.reduction_factor)
+    phone_ids, phone_lens, char_ids = trainer.predict_step(
+        trainer.state, torch.from_numpy(padded[None].astype(np.float32)),
+        torch.tensor([in_len], dtype=torch.int32))
+    phones = phone_f.iextract(phone_ids[0, :int(phone_lens[0])].tolist())
+    printed = next(line for line in captured.out.splitlines()
+                   if line.startswith("phones:"))
+    assert printed == "phones: " + " ".join(phones)
+    chars = []
+    for v in char_ids[0].tolist():
+        if v in (0, char_f.endid()):
+            break
+        chars.append(char_f.iextract(v))
+    assert f"chars : {''.join(chars)}" in captured.out
 
 
 def test_cli_cuda_request_without_a_card_raises(configs):
