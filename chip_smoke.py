@@ -10,20 +10,28 @@ Phases, in order; any failure raises and the script exits non-zero:
              CUDA.
 2. build   - nvcc builds every kernel in ``tensorflowasr_tpu_torch/csrc``.
 3. kernel  - K1 (the power-spectrogram kernel, one FFT per frame in shared
-             memory) against its plain PyTorch version, TF32 off, at every
-             shape a later phase gives it: 'same' at B=128 x 7 s (serve),
-             the one-chunk request shape (B=1 x 7680 samples), the train
-             batch (B=128 x 8 s), the cli phase's buckets (B=8 x 2 s and
-             4 s) and the card-against-CPU batch (B=2 x 1 s); and 'valid'
-             at B=16 x 7680 samples and a ragged T, so that both of its
-             slab-copy paths are taken; power within rtol 2e-4 / atol 2e-3,
-             log-mel within rtol 1e-3 / atol 5e-2. Times the kernel, the
-             plain version and ``torch.stft`` at the serve, the request and
-             the train shape, each with median, minimum and spread, beside
-             that shape's bound, and at the cli buckets (with a CUDA graph
-             replay, since events time the host there); and K1b (K1 + the
-             plain dB and mel matmul) at the serve shape beside the plain
-             version and ``torch.stft``, each with the same epilogue.
+             memory) and K1b (the log-mel kernel: K1's FFT with the dB and
+             the banded mel product fused behind it; two launches for
+             'same', the first for each row's max) against their plain
+             PyTorch versions, TF32 off, at every shape a later phase gives
+             them: 'same' at B=128 x 7 s (serve), the one-chunk request
+             shape (B=1 x 7680 samples), the train batch (B=128 x 8 s), the
+             cli phase's buckets (B=8 x 2 s and 4 s) and the card-against-
+             CPU batch (B=2 x 1 s); and 'valid' at B=16 x 7680 samples and
+             a ragged T, so that both of K1's slab-copy paths are taken;
+             power within rtol 2e-4 / atol 2e-3, log-mel within rtol 1e-3 /
+             atol 5e-2; K1b's backward (a given mel matrix) against the
+             plain version's autograd at the cli buckets, within 1e-4 of the
+             gradient's largest entry. Times K1, its plain version and
+             ``torch.stft`` at the serve, the request and the train shape,
+             each with median, minimum and spread, beside that shape's
+             bound, and at the cli buckets (with a CUDA graph replay, since
+             events time the host there); and K1b at the serve, train and
+             request shapes beside K1 + the plain dB and mel matmul (the
+             path K1b replaced, at the serve shape), the plain version and
+             ``torch.stft`` + the same dB and mel, with its bound counted
+             both ways (the mel product dense, and banded as the kernel
+             does it).
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -60,10 +68,12 @@ Phases, in order; any failure raises and the script exits non-zero:
              chunk CLI's offline decode; B=128 x 8 s, the chunk train batch;
              B=8 x 33280 and 64000, the chunk train CLI's buckets; B=2 x
              20480, the card-against-CPU batch) against its plain version,
-             then all but the last timed with the plain version and
-             ``torch.stft`` (left pad 1023, ``center=False``) +
-             ``abs()**2``: CUDA events at every shape, and a CUDA graph
-             replay at all but the offline batch.
+             with K1b 'valid' held at each; then K1 at all but the last
+             timed with the plain version and ``torch.stft`` (left pad
+             1023, ``center=False``) + ``abs()**2``: CUDA events at every
+             shape, and a CUDA graph replay at all but the offline batch;
+             and K1b the same way at the stream, pool, offline and chunk
+             train shapes.
 9. chunk_offline - ChunkConformer(S) from ``configs/chunk_conformerS.yml``
              at full width (``serve/bench_chunk.py``: seeded weights, first
              conv x10, the picker's blank bias moved so about half the
@@ -116,17 +126,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``--weights``) on an 8 s wav, both restoring that checkpoint:
              error rates finite, streamed phones = offline phones.
 
-K1's launch count is set to 0 just before the ``predict_step`` calls, the
-session's 4 requests, each dtype's train steps, the two CLI calls, each
-chunk phase's timed runs, the chunk CLI call, each dtype's chunk train
-steps and the three chunk train CLI calls, and read just after each; all
-must have launched it. The stage breakdowns and the card-vs-CPU checks
-run outside those windows. K1's times at the request and the train shape go
-on ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel
-phase. The last lines are a JSON line of kernel numbers (K1's times at the
-serve shape, with the request, train, cli and the 'valid' shapes beside
-them and the largest error over all shapes), then ``{"ok": true,
-"device": {...}}``.
+K1's and K1b's launch counts are set to 0 just before the ``predict_step``
+calls, the session's 4 requests, each dtype's train steps, the two CLI
+calls, each chunk phase's timed runs, the chunk CLI call, each dtype's
+chunk train steps and the three chunk train CLI calls, and read just after
+each; all must have launched both. K1b counts one launch a log-mel (the
+launch that writes it); K1 counts every launch of the FFT kernel, in any
+epilogue: two a 'same' log-mel (the max pass and the log-mel pass), one a
+'valid' one. Where a phase knows its number of frontend calls it must be
+exact. The stage breakdowns and the card-vs-CPU checks run outside those
+windows. K1's times at the request and the train shape go on
+``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel phase.
+The last lines are a JSON line of kernel numbers (K1's times at the serve
+shape, with the request, train, cli and the 'valid' shapes beside them and
+the largest error over all shapes; K1b's the same way), then ``{"ok":
+true, "device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
 """
@@ -178,7 +192,13 @@ PEAK_BYTES = 3.35e12
 REQUEST_SAMPLES = 7680               # ASREngine's 0.48 s chunk at B = 1
 CLI_B, CLI_BUCKET_SECONDS = 8, (2.0, 4.0)    # the cli phase's batches
 POWER_TOL = dict(rtol=2e-4, atol=2e-3)
+# torch.stft's log-mel against the plain version's (the Pallas kernel's
+# tolerance, for two DFTs that round differently)
 LOGMEL_TOL = dict(rtol=1e-3, atol=5e-2)
+# K1b against its plain version, as tests/test_torch_kernels_cuda.py holds
+# it: 8.0e-5 seen at most, where a bulk 'valid' log-mel of this noise is
+# about 0.02
+KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
 
 
 def log(*parts) -> None:
@@ -235,18 +255,23 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    log("kernels: K1 power_spectrogram (csrc/power_spectrogram.cu) "
-        "replaces pallas_frontend.py::power_spectrogram_pallas; K1b "
-        "log_mel_spectrogram_pallas is K1 + the plain dB/mel epilogue")
+    log("kernels: K1 power_spectrogram (csrc/power_spectrogram.cu, power "
+        "epilogue) replaces pallas_frontend.py::power_spectrogram_pallas; "
+        "K1b log_mel_spectrogram (the same FFT kernel with log-mel "
+        "epilogues, 'same' as power and row max, then log-mel from the "
+        "power; ops/log_mel_spectrogram.py) replaces "
+        "pallas_frontend.py::log_mel_spectrogram_pallas")
 
 
 def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
-            log_mel: bool = False) -> dict:
+            log_mel: bool = False, replaced: bool = False) -> dict:
     """Times of K1, its plain version and ``torch.stft`` on one input, and
-    the bound for that input; with ``graph`` also K1 replayed from a CUDA
-    graph. With ``log_mel``, K1b instead (log_mel_spectrogram_pallas's
-    counterpart): each of the three followed by the same plain dB and mel
-    matmul epilogue."""
+    the bound for that input; with ``graph`` also the kernel replayed from a
+    CUDA graph. With ``log_mel``, K1b instead (log_mel_spectrogram_pallas's
+    counterpart, the fused kernel), its plain version (the plain power, dB
+    and mel matmul) and ``torch.stft`` + ``abs()**2`` + the same dB and
+    matmul, with the bound counted both ways; with ``replaced`` also K1 +
+    the plain dB and mel matmul, the path K1b replaced."""
     from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
 
@@ -270,41 +295,67 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
                           center=False, return_complex=True)
         return epilogue((spec.abs() ** 2).transpose(1, 2))
 
-    def kernel_fn():
-        return epilogue(fe.power_spectrogram(wav, cfg))
+    if log_mel:
+        def kernel_fn():
+            return fe.log_mel_spectrogram(wav, cfg)
 
-    within(library(), epilogue(fe.power_spectrogram_reference(wav, cfg)),
-           **(LOGMEL_TOL if log_mel else POWER_TOL))
+        def plain_fn():
+            return fe.log_mel_spectrogram_reference(wav, cfg)
+    else:
+        def kernel_fn():
+            return fe.power_spectrogram(wav, cfg)
+
+        def plain_fn():
+            return fe.power_spectrogram_reference(wav, cfg)
+
+    within(library(), plain_fn(), **(LOGMEL_TOL if log_mel else POWER_TOL))
     kernel = cuda_times(kernel_fn, reps, 10)
-    plain = cuda_times(
-        lambda: epilogue(fe.power_spectrogram_reference(wav, cfg)),
-        max(reps // 5, 5), 2)
+    plain = cuda_times(plain_fn, max(reps // 5, 5), 2)
     lib = cuda_times(library, max(reps // 2, 5), 5)
     replayed = graph_times(kernel_fn, reps, 20) if graph else None
+    old = cuda_times(lambda: epilogue(fe.power_spectrogram(wav, cfg)),
+                     reps, 10) if replaced else None
     # The bound counts the least work the function needs: per frame the
-    # window product, a real FFT of n_fft points (2.5 n log2 n FLOP, half a
-    # complex FFT's 5 n log2 n) and re^2 + im^2 per bin; the wav read once
-    # and the power written once. K1b adds the dB (a log, a max and a
-    # scale per bin) and the [n_freq, n_mels] matmul, and writes the
-    # log-mel instead of the power.
-    per_frame = n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_freq
+    # window product, a real FFT of n_fft points (split radix: 2 n log2 n -
+    # 4 n + 6 FLOP, the fewest known) and re^2 + im^2 per bin; the wav read
+    # once and the power written once. K1b adds the dB (a log, a max and a
+    # scale per bin) and the mel product, and writes the log-mel instead of
+    # the power: counted dense (2 n_freq n_mels a frame) and banded (2 per
+    # nonzero of the basis, what the kernel does), each with its weights
+    # read once.
+    per_frame = (n_fft + 2 * n_fft * math.log2(n_fft) - 4 * n_fft + 6
+                 + 3 * n_freq)
     n_out = n_freq
     if log_mel:
-        per_frame += 3 * n_freq + 2 * n_freq * cfg.n_mels
+        per_frame += 3 * n_freq
         n_out = cfg.n_mels
-    flops = b * n_frames * per_frame
-    nbytes = 4.0 * (b * t + b * n_frames * n_out)
-    by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return {"kernel": kernel, "kernel_graph": replayed, "plain": plain,
-            "library": lib, "flops": flops, "bytes": nbytes,
-            "bound_ms": max(by_ops, by_bytes) * 1e3,
-            "bound_by": "operations" if by_ops > by_bytes else "bytes"}
+    frames = b * n_frames
+    nbytes = 4.0 * (b * t + frames * n_out)
+
+    def bound(flops, weight_bytes):
+        by_ops = flops / PEAK_F32_FLOPS
+        by_bytes = (nbytes + weight_bytes) / PEAK_BYTES
+        return {"bound_ms": max(by_ops, by_bytes) * 1e3,
+                "bound_by": "operations" if by_ops > by_bytes else "bytes",
+                "flops": flops, "bytes": nbytes + weight_bytes}
+
+    out = {"kernel": kernel, "kernel_graph": replayed, "plain": plain,
+           "library": lib, "replaced": old}
+    if not log_mel:
+        out.update(bound(frames * per_frame, 0.0))
+        return out
+    nnz = int(np.count_nonzero(fe._frontend_constants(cfg)[1]))
+    out.update(bound(frames * (per_frame + 2 * nnz),
+                     4.0 * (nnz + 3 * cfg.n_mels)))
+    out["dense"] = bound(frames * (per_frame + 2 * n_freq * cfg.n_mels),
+                         4.0 * n_freq * cfg.n_mels)
+    return out
 
 
 def hold_k1(padding: str, b: int, t: int):
-    """K1 against its plain version on one seeded input (power, and the
-    log-mel built on it). Returns (max |err| on power, whether the launch
-    took 16-byte slab copies)."""
+    """K1 and K1b against their plain versions on one seeded input. Returns
+    (max |err| on power, whether K1's launch took 16-byte slab copies, max
+    |err| on log-mel)."""
     from tensorflowasr_tpu_torch.ops import frontend as fe
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 
@@ -318,23 +369,83 @@ def hold_k1(padding: str, b: int, t: int):
     want = fe.power_spectrogram_reference(wav, cfg)
     torch.cuda.synchronize()
     err = within(got, want, **POWER_TOL)
-    mel = torch.from_numpy(fe._frontend_constants(cfg)[1]).to(dev)
     mel_err = within(fe.log_mel_spectrogram(wav, cfg),
-                     torch.matmul(fe._to_db(want, cfg), mel), **LOGMEL_TOL)
+                     fe.log_mel_spectrogram_reference(wav, cfg),
+                     **KERNEL_LOGMEL_TOL)
     log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)} "
         f"(tile {plan.tile_frames} frames, {plan.groups * 64} threads, "
         f"{16 if plan.vec16 else 4}-byte copies): max|err| power "
-        f"{err:.3e}, log-mel {mel_err:.3e}")
-    return err, plan.vec16
+        f"{err:.3e}; K1b log-mel {mel_err:.3e}")
+    return err, plan.vec16, mel_err
+
+
+def hold_k1b_backward(padding: str, b: int, t: int) -> float:
+    """K1b with a given mel matrix (K1, then the dense product kernel) and
+    its autograd backward against the plain version's, on one seeded input
+    and cotangent: log-mel within KERNEL_LOGMEL_TOL, the matrix's gradient
+    within 1e-4
+    of its largest entry. Returns the gradient's max |err|."""
+    from tensorflowasr_tpu_torch.ops import frontend as fe
+
+    dev = torch.device("cuda")
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    wav = torch.from_numpy(noise((b, t), seed=t + 1)).to(dev)
+    fb = fe._frontend_constants(cfg)[1]
+    w0 = torch.from_numpy(fb + np.random.default_rng(t).uniform(
+        0, 2e-3, fb.shape).astype(np.float32)).to(dev)
+    cot = torch.from_numpy(noise((b, -(-t // cfg.hop), cfg.n_mels),
+                                 seed=t + 2)).to(dev)
+    results = []
+    for fn in (fe.log_mel_spectrogram, fe.log_mel_spectrogram_reference):
+        w = w0.clone().requires_grad_()
+        out = fn(wav, cfg, mel_weights=w)
+        (out * cot).sum().backward()
+        results.append((out.detach(), w.grad))
+    torch.cuda.synchronize()
+    (got, got_grad), (want, want_grad) = results
+    err = within(got, want, **KERNEL_LOGMEL_TOL)
+    scale = float(want_grad.abs().max())
+    grad_err = within(got_grad, want_grad, rtol=0, atol=1e-4 * scale)
+    log(f"kernel: K1b {padding} B={b} T={t} with a given [513, 80] matrix: "
+        f"max|err| log-mel {err:.3e}; its backward, gradient max|err| "
+        f"{grad_err:.3e} (largest entry {scale:.3e})")
+    return grad_err
 
 
 def k1_numbers(batch: int, samples: int, times: dict) -> dict:
-    """The kernels line's numbers for one shape timed by ``time_k1``."""
-    return {"batch": batch, "samples": samples,
-            "ms": times["kernel"]["median"],
-            "plain_ms": times["plain"]["median"],
-            "library_ms": times["library"]["median"],
-            "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]}
+    """The kernels line's numbers for one shape timed by ``time_k1``: for
+    K1b also the dense bound, and where they were taken the graph replay
+    and the replaced path's time."""
+    out = {"batch": batch, "samples": samples,
+           "ms": times["kernel"]["median"],
+           "plain_ms": times["plain"]["median"],
+           "library_ms": times["library"]["median"],
+           "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]}
+    if "dense" in times:
+        out.update(dense_bound_ms=times["dense"]["bound_ms"],
+                   dense_bound_by=times["dense"]["bound_by"])
+    if times["kernel_graph"] is not None:
+        out["graph_ms"] = times["kernel_graph"]["median"]
+    if times["replaced"] is not None:
+        out["replaced_ms"] = times["replaced"]["median"]
+    return out
+
+
+def log_k1b(phase: str, what: str, times: dict) -> None:
+    """One line of K1b's times at a shape, beside its bounds."""
+    replay = "" if times["kernel_graph"] is None else (
+        f"; replayed from a CUDA graph {fmt_times(times['kernel_graph'])}")
+    replaced = "" if times["replaced"] is None else (
+        f"; K1 + plain dB + mel (the path it replaced) "
+        f"{fmt_times(times['replaced'])}")
+    dense = times["dense"]
+    log(f"{phase}: K1b log-mel {what}: kernel {fmt_times(times['kernel'])}"
+        f"{replay}{replaced}; plain {fmt_times(times['plain'])}; library "
+        f"(torch.stft + abs()**2 + dB + mel) {fmt_times(times['library'])}; "
+        f"bound banded {times['bound_ms']:.6f} ms by {times['bound_by']} "
+        f"({times['flops']:.4e} FLOP, {times['bytes']:.4e} B), dense "
+        f"{dense['bound_ms']:.6f} ms by {dense['bound_by']} "
+        f"({dense['flops']:.4e} FLOP)")
 
 
 def phase_kernel() -> dict:
@@ -347,26 +458,34 @@ def phase_kernel() -> dict:
               ("same", TRAIN_B, TRAIN_SECONDS * SR),
               *(("same", CLI_B, int(s * SR)) for s in CLI_BUCKET_SECONDS),
               ("same", 2, SR))
-    result, copies = {"max_abs_err": 0.0}, set()
+    result, copies = {"max_abs_err": 0.0, "log_mel_max_abs_err": 0.0}, set()
     for padding, b, t in shapes:
-        err, vec16 = hold_k1(padding, b, t)
+        err, vec16, mel_err = hold_k1(padding, b, t)
         copies.add(vec16)
         result["max_abs_err"] = max(result["max_abs_err"], err)
+        result["log_mel_max_abs_err"] = max(result["log_mel_max_abs_err"],
+                                            mel_err)
     if copies != {True, False}:
         raise AssertionError("the shapes did not cover both copy paths")
+    for padding in ("same", "valid"):
+        hold_k1b_backward(padding, CLI_B, int(CLI_BUCKET_SECONDS[0] * SR))
 
     # the serving shape: 57 MB of wav in, 184 MB of power out, more than the
     # 50 MB L2, so back-to-back launches find their inputs in device memory
     batched = time_k1("same", 128, 7 * SR, reps=50)
-    # K1b at that shape: K1 and the plain dB + mel epilogue, against the
-    # plain power spectrum and torch.stft each with the same epilogue
-    k1b = time_k1("same", 128, 7 * SR, reps=20, log_mel=True)
-    log(f"kernel: K1b log-mel same B=128 T={7 * SR}: K1 + dB + mel "
-        f"{fmt_times(k1b['kernel'])}; plain + dB + mel "
-        f"{fmt_times(k1b['plain'])}; library (torch.stft + abs()**2 + dB + "
-        f"mel) {fmt_times(k1b['library'])}; bound_ms {k1b['bound_ms']:.4f} "
-        f"by {k1b['bound_by']} ({k1b['flops']:.4e} FLOP, "
-        f"{k1b['bytes']:.4e} B)")
+    # K1b at that shape (57 MB in, 29 MB out), beside the path it replaced
+    # (K1 + the plain dB + mel matmul), the plain version and torch.stft
+    # with the same dB and mel
+    k1b = time_k1("same", 128, 7 * SR, reps=50, log_mel=True, replaced=True)
+    log_k1b("kernel", f"same B=128 T={7 * SR} (serve)", k1b)
+    k1b_train = time_k1("same", TRAIN_B, TRAIN_SECONDS * SR, reps=50,
+                        log_mel=True)
+    log_k1b("kernel", f"same B={TRAIN_B} T={TRAIN_SECONDS * SR} (train)",
+            k1b_train)
+    k1b_request = time_k1("same", 1, REQUEST_SAMPLES, reps=50, graph=True,
+                          log_mel=True)
+    log_k1b("kernel", f"same B=1 T={REQUEST_SAMPLES} (request, L2-warm)",
+            k1b_request)
     log(f"kernel: K1 same B=128 T={7 * SR} (inputs and outputs exceed the "
         f"L2): kernel {fmt_times(batched['kernel'])}; plain "
         f"{fmt_times(batched['plain'])}; library (torch.stft + abs()**2) "
@@ -400,9 +519,7 @@ def phase_kernel() -> dict:
     for seconds in CLI_BUCKET_SECONDS:
         t = int(seconds * SR)
         times = time_k1("same", CLI_B, t, reps=20, graph=True)
-        result["cli_shapes"].append(dict(
-            k1_numbers(CLI_B, t, times),
-            graph_ms=times["kernel_graph"]["median"]))
+        result["cli_shapes"].append(k1_numbers(CLI_B, t, times))
         log(f"kernel: K1 same B={CLI_B} T={t} (a cli bucket): kernel "
             f"{fmt_times(times['kernel'])}; kernel replayed from a CUDA "
             f"graph {fmt_times(times['kernel_graph'])}; plain "
@@ -411,10 +528,11 @@ def phase_kernel() -> dict:
             f"{times['bound_ms']:.6f} by {times['bound_by']} "
             f"({times['bytes']:.4e} B)")
     result["train_shape"] = k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
-    result["log_mel_serve_shape"] = k1_numbers(128, 7 * SR, k1b)
-    result["request_shape"] = dict(
-        k1_numbers(1, REQUEST_SAMPLES, request),
-        graph_ms=request["kernel_graph"]["median"])
+    result["log_mel"] = {
+        "serve": k1_numbers(128, 7 * SR, k1b),
+        "train": k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, k1b_train),
+        "request": k1_numbers(1, REQUEST_SAMPLES, k1b_request)}
+    result["request_shape"] = k1_numbers(1, REQUEST_SAMPLES, request)
     log(json.dumps({"k1_request_shape": result["request_shape"]}))
     log(json.dumps({"k1_train_shape": result["train_shape"]}))
     result.update(k1_numbers(128, 7 * SR, batched))
@@ -441,14 +559,32 @@ def check_outputs(out, b: int, t_enc: int) -> None:
         raise AssertionError("ids out of range")
 
 
-def k1_counted(fn):
-    """``fn()`` with K1's launch count set to 0 just before it and read just
-    after it: returns (what fn returned, launches)."""
+def counted(fn):
+    """``fn()`` with K1's and K1b's launch counts set to 0 just before it
+    and read just after it: returns (what fn returned, (K1 launches, K1b
+    launches))."""
+    from tensorflowasr_tpu_torch.ops import log_mel_spectrogram as k1b
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 
     k1.power_spectrogram_cuda.launches = 0
+    k1b.log_mel_spectrogram_cuda.launches = 0
     out = fn()
-    return out, k1.power_spectrogram_cuda.launches
+    return out, (k1.power_spectrogram_cuda.launches,
+                 k1b.log_mel_spectrogram_cuda.launches)
+
+
+def expect(launches: tuple, calls: int, what: str) -> tuple:
+    """Raise unless ``calls`` log-mel frontends launched K1b
+    once each and K1 (the FFT kernel) once each; returns ``launches``."""
+    want = (calls, calls)
+    if tuple(launches) != want:
+        raise AssertionError(f"{what} launched K1 and K1b {launches} times, "
+                             f"not {want}")
+    return launches
+
+
+def add(a: tuple, b: tuple) -> tuple:
+    return tuple(x + y for x, y in zip(a, b))
 
 
 def stage_breakdown(model, wav, length) -> dict:
@@ -466,7 +602,7 @@ def stage_breakdown(model, wav, length) -> dict:
     with torch.no_grad():
         mark("start")
         mel = enc_mod.mel_layer(wav)
-        mark("frontend (K1 + dB + mel)")
+        mark("frontend (K1b: FFT, dB and banded mel in one kernel)")
         x = enc_mod.conv_subsampling(mel[..., None])
         mark("conv subsampling")
         for block in enc_mod.blocks:
@@ -485,8 +621,8 @@ def stage_breakdown(model, wav, length) -> dict:
 
 
 def phase_serve(seconds: float = 7.0, b: int = 128, reps: int = 5):
-    """Returns the models by dtype and K1's launches in the predict_step
-    calls alone."""
+    """Returns the models by dtype and K1's and K1b's launches in the
+    predict_step calls alone."""
     from tensorflowasr_tpu_torch.models.conformer import (
         ConformerConfig,
         build_model,
@@ -497,7 +633,7 @@ def phase_serve(seconds: float = 7.0, b: int = 128, reps: int = 5):
     wav, length = batch_inputs(b, seconds, dev)
     n_frames = -(-wav.shape[1] // 160)
     t_enc = -(-n_frames // 4)
-    models, launches = {}, 0
+    models, launches = {}, (0, 0)
     for dtype in ("float32", "bfloat16"):
         cfg = ConformerConfig(dtype_str=dtype)
         model = build_model(cfg, N_PHONE, N_CHAR, device="cuda", seed=0)
@@ -516,11 +652,9 @@ def phase_serve(seconds: float = 7.0, b: int = 128, reps: int = 5):
             check_outputs(out, b, t_enc)
             return times
 
-        times, n = k1_counted(predict)
-        if n != reps + 1:
-            raise AssertionError(f"{reps + 1} predict_step calls launched "
-                                 f"K1 {n} times")
-        launches += n
+        times, n = counted(predict)
+        launches = add(launches, expect(n, reps + 1,
+                                        f"{reps + 1} predict_step calls"))
         step = statistics.median(times)
         log(f"serve: predict_step {dtype} B={b} x {seconds} s: median "
             f"{step * 1e3:.3f} ms (min {min(times) * 1e3:.3f}), per-stream "
@@ -557,8 +691,8 @@ class CharVocab:
         return 1
 
 
-def phase_requests(model) -> int:
-    """Returns K1's launches in the 4 requests alone."""
+def phase_requests(model) -> tuple:
+    """Returns K1's and K1b's launches in the 4 requests alone."""
     from tensorflowasr_tpu_torch.serve.engines import ASREngine
     from tensorflowasr_tpu_torch.serve.offline_session import (
         OfflineASRSession,
@@ -581,7 +715,7 @@ def phase_requests(model) -> int:
                 f"{len(segments[0]['text'])} text chars, latency "
                 f"{latency * 1e3:.3f} ms (RTF {latency / seconds:.3e})")
 
-    return k1_counted(requests)[1]
+    return counted(requests)[1]
 
 
 def train_stage_split(trainer, batch) -> dict:
@@ -603,12 +737,13 @@ def train_stage_split(trainer, batch) -> dict:
             for (_, prev), (name, ev) in zip(marks, marks[1:])}
 
 
-def phase_train(steps: int = 10) -> int:
-    """Returns K1's launches in the ``train_step`` calls alone."""
+def phase_train(steps: int = 10) -> tuple:
+    """Returns K1's and K1b's launches in the ``train_step`` calls
+    alone."""
     numpy_batch = train_batch(TRAIN_B, TRAIN_SECONDS, TRAIN_PHONES,
                               TRAIN_CHARS)
     audio_s = TRAIN_B * TRAIN_SECONDS
-    launches = 0
+    launches = (0, 0)
     for dtype in ("bfloat16", "float32"):
         trainer = new_trainer(dtype, "cuda")
         cfg = trainer.model_cfg
@@ -639,11 +774,12 @@ def phase_train(steps: int = 10) -> int:
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) / steps
 
-        pipelined, n = k1_counted(run)
-        if n != 2 * steps + 1 or state.step != n:
-            raise AssertionError(f"{state.step} train steps launched K1 "
-                                 f"{n} times")
-        launches += n
+        pipelined, n = counted(run)
+        if state.step != 2 * steps + 1:
+            raise AssertionError(f"{state.step} train steps, not "
+                                 f"{2 * steps + 1}")
+        launches = add(launches, expect(n, state.step,
+                                        f"{state.step} train steps"))
         values = [float(v) for v in torch.stack(losses).cpu()]
         if not all(math.isfinite(v) for v in values):
             raise AssertionError(f"non-finite train_loss: {values}")
@@ -787,8 +923,8 @@ def write_corpus(root: str, n_utts: int = 40) -> str:
     return put("data.yml", yaml.safe_dump(data))
 
 
-def phase_cli() -> int:
-    """Returns K1's launches in the two CLI calls."""
+def phase_cli() -> tuple:
+    """Returns K1's and K1b's launches in the two CLI calls."""
     from tensorflowasr_tpu_torch.cli import eval_am, train_asr
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -811,7 +947,7 @@ def phase_cli() -> int:
             return rc, out.getvalue(), err.getvalue(), t_train, \
                 time.perf_counter() - t0
 
-        (rc, out, err, t_train, t_eval), launches = k1_counted(run)
+        (rc, out, err, t_train, t_eval), launches = counted(run)
         ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
         with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
@@ -829,8 +965,7 @@ def phase_cli() -> int:
     if result["phone_N"] <= 0 or result["char_N"] <= 0:
         raise AssertionError(f"eval_am scored nothing: {result}")
     # 6 train steps, and 2 eval batches through predict_step
-    if launches != 8:
-        raise AssertionError(f"the CLI calls launched K1 {launches} times")
+    expect(launches, 8, "the train_asr and eval_am calls")
     log(f"cli: train_asr bf16, 6 steps of B=8 in {t_train:.2f} s "
         f"(train_loss {logged[0]['train_loss']:.3f} -> "
         f"{logged[-1]['train_loss']:.3f}), checkpoints {ckpts}; eval_am "
@@ -877,15 +1012,17 @@ def check_share(share: float, what: str) -> None:
 
 
 def phase_chunk_kernel() -> dict:
-    """K1 'valid' at the chunk path's shapes: held against its plain
-    version, then timed with the plain version and ``torch.stft``."""
+    """K1 and K1b 'valid' at the chunk path's shapes: held against their
+    plain versions, then timed with the plain versions and ``torch.stft``."""
     shapes = [*CHUNK_K1_SHAPES.values(), *CHUNK_CLI_SHAPES, CHUNK_VS_CPU]
-    out = {"max_abs_err": max(hold_k1("valid", b, t)[0] for b, t in shapes)}
+    held = [hold_k1("valid", b, t) for b, t in shapes]
+    out = {"max_abs_err": max(h[0] for h in held),
+           "log_mel_max_abs_err": max(h[2] for h in held),
+           "log_mel": {}}
     out["train_cli"] = []
     for b, t in CHUNK_CLI_SHAPES:
         times = time_k1("valid", b, t, reps=20, graph=True)
-        out["train_cli"].append(dict(k1_numbers(b, t, times),
-                                     graph_ms=times["kernel_graph"]["median"]))
+        out["train_cli"].append(k1_numbers(b, t, times))
         log(f"chunk_kernel: K1 valid B={b} T={t} (a chunk train cli bucket):"
             f" kernel {fmt_times(times['kernel'])}; kernel replayed from a "
             f"CUDA graph {fmt_times(times['kernel_graph'])}; plain "
@@ -901,7 +1038,6 @@ def phase_chunk_kernel() -> dict:
         out[name] = k1_numbers(b, t, times)
         replay = ""
         if small:
-            out[name]["graph_ms"] = times["kernel_graph"]["median"]
             replay = (f"; kernel replayed from a CUDA graph "
                       f"{fmt_times(times['kernel_graph'])}")
         log(f"chunk_kernel: K1 valid B={b} T={t} ({name}): kernel "
@@ -910,12 +1046,17 @@ def phase_chunk_kernel() -> dict:
             f"1023, center=False, + abs()**2) {fmt_times(times['library'])}"
             f"; bound_ms {times['bound_ms']:.6f} by {times['bound_by']} "
             f"({times['bytes']:.4e} B, {times['flops']:.4e} FFT FLOP)")
+        if name == "cli":
+            continue
+        times = time_k1("valid", b, t, reps=50, graph=small, log_mel=True)
+        out["log_mel"][name] = k1_numbers(b, t, times)
+        log_k1b("chunk_kernel", f"valid B={b} T={t} ({name})", times)
     return out
 
 
 def phase_chunk_offline(models: dict, reps: int = 5) -> int:
-    """``make_chunk_predict_step`` at B = 128 x 7 s. Returns K1's launches
-    in the timed calls."""
+    """``make_chunk_predict_step`` at B = 128 x 7 s. Returns K1's and K1b's
+    launches in the timed calls."""
     from tensorflowasr_tpu_torch.train.chunk_trainer import (
         make_chunk_predict_step,
     )
@@ -926,7 +1067,7 @@ def phase_chunk_offline(models: dict, reps: int = 5) -> int:
     ).to(dev)
     t_enc = OFFLINE_SECONDS * SR // 640
     in_len = torch.full((OFFLINE_B,), t_enc, dtype=torch.int32, device=dev)
-    launches = 0
+    launches = (0, 0)
     for dtype, model in models.items():
         step = make_chunk_predict_step(model)
         torch.cuda.reset_peak_memory_stats()
@@ -941,11 +1082,9 @@ def phase_chunk_offline(models: dict, reps: int = 5) -> int:
             return times, out
 
         step(wav, in_len)                                   # warm-up
-        (times, out), n = k1_counted(run)
-        if n != reps:
-            raise AssertionError(f"{reps} predict calls launched K1 {n} "
-                                 f"times")
-        launches += n
+        (times, out), n = counted(run)
+        launches = add(launches, expect(n, reps,
+                                        f"{reps} chunk predict calls"))
         char_ids, char_lens, phone_ids, phone_lens = out
         if tuple(phone_ids.shape) != (OFFLINE_B, t_enc) or \
                 tuple(char_ids.shape) != (OFFLINE_B, t_enc):
@@ -989,8 +1128,8 @@ def phase_chunk_stream(models: dict) -> int:
     """One stream: ``fused_stream_step`` chained on its caches (device
     only) and ``ChunkStreamSession`` (a fetch a chunk), in f32 and bf16;
     then, in f32, the session against the offline decode and the card's
-    picker logits against the CPU's. Returns K1's launches in the timed
-    runs."""
+    picker logits against the CPU's. Returns K1's and K1b's launches in the
+    timed runs."""
     from tensorflowasr_tpu_torch.models.chunk_conformer import ChunkConformer
     from tensorflowasr_tpu_torch.serve.chunk_session import (
         ChunkStreamSession,
@@ -1000,7 +1139,7 @@ def phase_chunk_stream(models: dict) -> int:
     dev = torch.device("cuda")
     signal = tones(STREAM_CHUNKS * CHUNK_S, seed=70)             # 8 s
     chunks = torch.from_numpy(signal.reshape(STREAM_CHUNKS, 1, -1)).to(dev)
-    launches, results = 0, {}
+    launches, results = (0, 0), {}
     for dtype, model in models.items():
         state = {}
 
@@ -1035,12 +1174,12 @@ def phase_chunk_stream(models: dict) -> int:
                 model.fused_stream_step(chunks[i],
                                         model.init_stream_caches(1))
             session.feed(signal[:CHUNK_SAMPLES])
-            dev_times, n_dev = k1_counted(device_only)
-            (wall_times, result), n_wall = k1_counted(wall)
-        if (n_dev, n_wall) != (STREAM_REPS * STREAM_CHUNKS, STREAM_CHUNKS):
-            raise AssertionError(f"K1 launches {n_dev}, {n_wall}: not one "
-                                 f"per chunk")
-        launches += n_dev + n_wall
+            dev_times, n_dev = counted(device_only)
+            (wall_times, result), n_wall = counted(wall)
+        expect(n_dev, STREAM_REPS * STREAM_CHUNKS,
+               "the chained stream steps")
+        expect(n_wall, STREAM_CHUNKS, "the session's chunks")
+        launches = add(launches, add(n_dev, n_wall))
         results[dtype] = result
         best, med = min(dev_times), statistics.median(wall_times)
         log(f"chunk_stream: {dtype} fused_stream_step, device only "
@@ -1144,8 +1283,8 @@ def pool_requests(model, seconds=(2.0, 3.5, 5.0, 8.0)) -> None:
 def phase_chunk_pool(models: dict) -> int:
     """``MultiStreamChunkServer``'s step over 256 slots, f32 and bf16: the
     tick chained on its caches (best of 10 x 25), and the server's own
-    ticks (upload, step, fetch); then the request check. Returns K1's
-    launches."""
+    ticks (upload, step, fetch); then the request check. Returns K1's and
+    K1b's launches."""
     from tensorflowasr_tpu_torch.serve.multi_session import (
         MultiStreamChunkServer,
     )
@@ -1154,7 +1293,7 @@ def phase_chunk_pool(models: dict) -> int:
     signal = np.stack([tones(POOL_TICKS * CHUNK_S, seed=200 + i)
                        for i in range(POOL_SLOTS)])
     first = torch.from_numpy(signal[:, :CHUNK_SAMPLES].copy()).to(dev)
-    launches = 0
+    launches = (0, 0)
     for dtype, model in models.items():
         torch.cuda.reset_peak_memory_stats()
         server = MultiStreamChunkServer(model, n_slots=POOL_SLOTS,
@@ -1185,10 +1324,9 @@ def phase_chunk_pool(models: dict) -> int:
         with torch.no_grad():
             model.batched_stream_step(
                 first, model.init_multi_stream_caches(POOL_SLOTS))  # warm
-            (times, served), n = k1_counted(ticks)
-        if n != POOL_REPS * POOL_TICKS + POOL_TICKS:
-            raise AssertionError(f"K1 launched {n} times, not once a tick")
-        launches += n
+            (times, served), n = counted(ticks)
+        launches = add(launches, expect(
+            n, POOL_REPS * POOL_TICKS + POOL_TICKS, "the ticks"))
         tick_s = min(times)
         log(f"chunk_pool: {dtype} batched_stream_step over {POOL_SLOTS} "
             f"slots, chained (one sync, no implicit sync): best "
@@ -1201,14 +1339,16 @@ def phase_chunk_pool(models: dict) -> int:
             f"{POOL_SLOTS * CHUNK_S / served:.1f} streams; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     with torch.no_grad():
-        launches += k1_counted(lambda: pool_requests(models["float32"]))[1]
+        launches = add(launches, counted(
+            lambda: pool_requests(models["float32"]))[1])
     return launches
 
 
 def phase_chunk_cli(model) -> int:
     """``cli.test_chunk_asr --device cuda`` on an 8 s wav, with ``model``'s
     weights written as a flax ``.npz`` for ``--weights``: the streamed
-    phones must equal the offline ones. Returns K1's launches."""
+    phones must equal the offline ones. Returns K1's and K1b's
+    launches."""
     from tensorflowasr_tpu_torch.cli import test_chunk_asr
     from tensorflowasr_tpu_torch.models.convert import save_npz
     from tensorflowasr_tpu_torch.utils.audio import write_wav
@@ -1230,7 +1370,7 @@ def phase_chunk_cli(model) -> int:
             with contextlib.redirect_stdout(out):
                 return test_chunk_asr.main(args)
 
-        rc, launches = k1_counted(run)
+        rc, launches = counted(run)
     lines = dict(line.split(":", 1) for line in out.getvalue().splitlines()
                  if ":" in line and not line.startswith("audio"))
     offline, stream = lines["offline phones"].split(), \
@@ -1240,8 +1380,7 @@ def phase_chunk_cli(model) -> int:
                              f"{offline[:20]}, streamed {stream[:20]}")
     # offline: a warm-up and the timed decode; the session: a warm-up chunk
     # and one launch a chunk (the wav is whole chunks, so no flush step)
-    if launches != 3 + CLI_CHUNKS:
-        raise AssertionError(f"the chunk CLI launched K1 {launches} times")
+    expect(launches, 3 + CLI_CHUNKS, "the chunk CLI")
     summary = out.getvalue().strip().splitlines()[-1]
     log(f"chunk_cli: cli.test_chunk_asr --weights (the f32 model as a flax "
         f".npz) --device cuda on an {CLI_CHUNKS * CHUNK_S:.0f} s wav: "
@@ -1331,10 +1470,11 @@ def chunk_train_stage_split(trainer, batch) -> dict:
 
 
 def phase_chunk_train(steps: int = 10) -> int:
-    """Returns K1's launches in the chunk ``train_step`` calls alone."""
+    """Returns K1's and K1b's launches in the chunk ``train_step`` calls
+    alone."""
     numpy_batch = chunk_train_batch()
     audio_s = TRAIN_B * TRAIN_SECONDS
-    launches = 0
+    launches = (0, 0)
     for dtype in ("float32", "bfloat16"):
         trainer = new_chunk_trainer(dtype, "cuda")
         state = trainer.state
@@ -1361,11 +1501,12 @@ def phase_chunk_train(steps: int = 10) -> int:
                 losses.append(m["train_loss"])
             return back
 
-        pipelined, n = k1_counted(run)
-        if n != 2 * steps + 1 or state.step != n:
-            raise AssertionError(f"{state.step} chunk train steps launched "
-                                 f"K1 {n} times")
-        launches += n
+        pipelined, n = counted(run)
+        if state.step != 2 * steps + 1:
+            raise AssertionError(f"{state.step} chunk train steps, not "
+                                 f"{2 * steps + 1}")
+        launches = add(launches, expect(n, state.step,
+                                        f"{state.step} chunk train steps"))
         peak = torch.cuda.max_memory_allocated() / 2**30
         values = [float(v) for v in torch.stack(losses).cpu()]
         if not all(math.isfinite(v) for v in values):
@@ -1378,7 +1519,7 @@ def phase_chunk_train(steps: int = 10) -> int:
             f"audio s/s; median {step * 1e3:.3f} ms (min "
             f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; {steps} "
             f"steps, each waited for), {audio_s / step:.1f} audio s/s; peak "
-            f"memory {peak:.2f} GiB; K1 launches {n}")
+            f"memory {peak:.2f} GiB; K1 and K1b launches {n}")
         log(f"chunk_train: {dtype} train_loss first {values[0]:.4f}, last "
             f"{values[-1]:.4f}; picked {before[0]:.1%} of the frames, t_ref "
             f"{before[1]} before the steps, {after[0]:.1%} and t_ref "
@@ -1448,7 +1589,7 @@ def phase_chunk_train_card_vs_cpu() -> None:
 
 def phase_chunk_train_cli() -> int:
     """``cli.train_asr`` with the chunk config, then ``cli.eval_am`` and
-    ``cli.test_chunk_asr`` restoring its checkpoint. Returns K1's
+    ``cli.test_chunk_asr`` restoring its checkpoint. Returns K1's and K1b's
     launches."""
     from tensorflowasr_tpu_torch.cli import eval_am, test_chunk_asr, train_asr
     from tensorflowasr_tpu_torch.utils.audio import write_wav
@@ -1480,7 +1621,7 @@ def phase_chunk_train_cli() -> int:
                     quiet(eval_am.main, common + ["--max_batches", "1"]),
                     quiet(test_chunk_asr.main, common + ["--wav", wav_path]))
 
-        (t_train, evaluated, tested), launches = k1_counted(run)
+        (t_train, evaluated, tested), launches = counted(run)
         ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
         with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
             logged = [json.loads(line) for line in f]
@@ -1506,9 +1647,8 @@ def phase_chunk_train_cli() -> int:
                              f"{offline[:20]}, streamed {stream[:20]}")
     # 3 train steps, 1 eval batch; the test CLI's warm-up and timed offline
     # decode, its warm-up chunk and one launch a chunk
-    if launches != 3 + 1 + 3 + CLI_CHUNKS:
-        raise AssertionError(f"the chunk train CLI calls launched K1 "
-                             f"{launches} times")
+    expect(launches, 3 + 1 + 3 + CLI_CHUNKS,
+           "the chunk train CLI calls")
     log(f"chunk_train_cli: train_asr f32, 3 steps of B={CLI_B} in "
         f"{t_train:.2f} s (train_loss {logged[0]['train_loss']:.3f} at step "
         f"2), checkpoints {ckpts}; eval_am restored step 3 and scored 1 "
@@ -1543,26 +1683,36 @@ def main() -> int:
     chunk["chunk_train"] = phase_chunk_train()
     phase_chunk_train_card_vs_cpu()
     chunk["train_cli"] = phase_chunk_train_cli()
-    launches = batched + requested + trained + cli + sum(chunk.values())
-    log(f"launches: K1 {launches} on the main path ({batched} in the "
-        f"predict_step calls, {requested} in the session's requests, "
-        f"{trained} in the train steps, {cli} in the train_asr and eval_am "
-        f"CLI calls, {chunk['offline']} in the chunk predict calls, "
-        f"{chunk['stream']} in the one-stream chunk steps, "
-        f"{chunk['pool']} in the pool's ticks and the request check, "
-        f"{chunk['cli']} in the test_chunk_asr CLI call, "
-        f"{chunk['chunk_train']} in the chunk train steps, "
-        f"{chunk['train_cli']} in the chunk train_asr, eval_am and "
-        f"test_chunk_asr CLI calls)")
-    if min(batched, requested, trained, cli, *chunk.values()) == 0:
-        raise AssertionError("the main path did not launch K1 in every "
-                             "phase")
+    phases = {"predict_step calls": batched, "session's requests": requested,
+              "train steps": trained, "train_asr and eval_am CLI calls": cli,
+              "chunk predict calls": chunk["offline"],
+              "one-stream chunk steps": chunk["stream"],
+              "pool's ticks and the request check": chunk["pool"],
+              "test_chunk_asr CLI call": chunk["cli"],
+              "chunk train steps": chunk["chunk_train"],
+              "chunk train_asr, eval_am and test_chunk_asr CLI calls":
+                  chunk["train_cli"]}
+    launches = (0, 0)
+    for n in phases.values():
+        launches = add(launches, n)
+    log(f"launches on the main path: K1 {launches[0]}, K1b {launches[1]} ("
+        + ", ".join(f"{n[0]} and {n[1]} in the {what}"
+                    for what, n in phases.items()) + ")")
+    if min(min(n) for n in phases.values()) == 0:
+        raise AssertionError("the main path did not launch K1 and K1b in "
+                             "every phase")
 
     entry = {
         "name": "power_spectrogram", "route": "cuda",
         "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
         "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:77",
-        "launches": launches,
+        # every launch of the FFT kernel, in any epilogue: on the main path
+        # each is K1b's FFT pass (kPowerMax for 'same', the fused kLogMel
+        # for 'valid'), while ms is that of K1's own power-only launch
+        "launches": launches[0],
+        "launches_are": "the FFT pass of each K1b call (power and row max "
+                        "for 'same', the fused log-mel for 'valid'); ms, "
+                        "plain_ms and bound_ms are K1's power-only launch",
         "max_abs_err": max(k1["max_abs_err"], k1_chunk["max_abs_err"]),
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -1571,16 +1721,37 @@ def main() -> int:
         "batch": k1["batch"], "samples": k1["samples"],
         "request_shape": k1["request_shape"],
         "train_shape": k1["train_shape"],
-        # K1b: K1 + the plain dB and mel epilogue, 'same', B=128 x 7 s
-        "log_mel_serve_shape": k1["log_mel_serve_shape"],
         "cli_shapes": k1["cli_shapes"],
         # 'valid' on the chunk path; launches are those of the phase
-        "valid_shapes": {key: dict(k1_chunk[key], launches=chunk[key])
+        "valid_shapes": {key: dict(k1_chunk[key], launches=chunk[key][0])
                          for key in CHUNK_K1_SHAPES},
         "valid_train_cli_shapes": {"shapes": k1_chunk["train_cli"],
-                                   "launches": chunk["train_cli"]},
+                                   "launches": chunk["train_cli"][0]},
     }
-    log(json.dumps({"kernels": [entry]}))
+    serve = k1["log_mel"]["serve"]
+    log_mel = {
+        "name": "log_mel_spectrogram", "route": "cuda",
+        "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
+        "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:136",
+        # one a log-mel computed
+        "launches": launches[1],
+        "max_abs_err": max(k1["log_mel_max_abs_err"],
+                           k1_chunk["log_mel_max_abs_err"]),
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        # banded: the work the shipped basis needs (dense_bound_ms beside)
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "library_ms": serve["library_ms"],
+        # the numbers above are 'same' at B=128 x 7 s
+        "batch": serve["batch"], "samples": serve["samples"],
+        "dense_bound_ms": serve["dense_bound_ms"],
+        "replaced_ms": serve["replaced_ms"],
+        "same_shapes": {key: k1["log_mel"][key]
+                        for key in ("train", "request")},
+        "valid_shapes": {key: dict(k1_chunk["log_mel"][key],
+                                   launches=chunk[key][1])
+                         for key in k1_chunk["log_mel"]},
+    }
+    log(json.dumps({"kernels": [entry, log_mel]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

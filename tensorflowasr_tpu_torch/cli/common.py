@@ -84,11 +84,11 @@ def model_name(config: UserConfig) -> str:
     return config.section("model_config")["name"] or "OfflineConformerCTC"
 
 
-def offline_ctc_setup(args, config: UserConfig):
+def offline_ctc_setup(args, config: UserConfig, compute_dtype: str):
     """What ``train_asr`` and ``eval_am`` share for the offline family:
     refuse what is not ported, then build the dataloader and the trainer
-    (with fresh random weights) from the config. -> (dataloader, trainer,
-    char featurizer)."""
+    (with fresh random weights, computing in ``compute_dtype``) from the
+    config. -> (dataloader, trainer, char featurizer)."""
     from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
     from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 
@@ -98,12 +98,12 @@ def offline_ctc_setup(args, config: UserConfig):
                       transcripts_are_pinyin=pinyin_txt)
     trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
                          blank_id=phone_f.blank, device=args.device,
-                         compute_dtype=args.compute_dtype)
+                         compute_dtype=compute_dtype)
     trainer.init_state()
     return dl, trainer, char_f
 
 
-def chunk_setup(args, config: UserConfig):
+def chunk_setup(args, config: UserConfig, compute_dtype: str):
     """:func:`offline_ctc_setup` for ``model_config.name: ChunkConformer``:
     the chunk dataloader and a ``ChunkTrainer`` with fresh random weights.
     -> (dataloader, trainer)."""
@@ -115,8 +115,7 @@ def chunk_setup(args, config: UserConfig):
     _refuse_data_procs(args)
     phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
     trainer = ChunkTrainer(config, phone_f.num_classes, char_f.num_classes,
-                           device=args.device,
-                           compute_dtype=args.compute_dtype)
+                           device=args.device, compute_dtype=compute_dtype)
     dl = ChunkDataLoader(config, phone_f, char_f,
                          chunk_num=trainer.model_cfg.chunk_num,
                          pinyin2phone=p2p, pinyin=pin,

@@ -8,8 +8,10 @@ Counterpart of ``tensorflowasr_tpu/cli/eval_am.py``: dispatches on
 ``model_config.name`` (``ChunkConformer`` -> ``ChunkTester``, anything else
 -> ``AMTester``). The newest checkpoint under
 ``running_config.outdir``/checkpoints is evaluated (random init with a
-warning when there is none). Decoding is greedy: ``--lm`` / ``--word_lm``
-(beam search with n-gram fusion) are not ported yet and raise.
+warning when there is none). It scores in float32, as the JAX CLI does
+(its trainers are built without ``compute_dtype``): ``--compute_dtype`` is
+parsed and ignored. Decoding is greedy: ``--lm`` / ``--word_lm`` (beam
+search with n-gram fusion) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -55,10 +57,10 @@ def main(argv=None) -> int:
             "ported yet; eval_am decodes greedily")
     config = load_config(args)
     if model_name(config) == "ChunkConformer":
-        dl, trainer = chunk_setup(args, config)
+        dl, trainer = chunk_setup(args, config, "float32")
         tester = ChunkTester(trainer.predict_step, trainer.state)
     else:
-        dl, trainer, char_f = offline_ctc_setup(args, config)
+        dl, trainer, char_f = offline_ctc_setup(args, config, "float32")
         tester = AMTester(trainer, char_end_id=char_f.endid())
     if not trainer.restore():
         print("warning: no checkpoint found; evaluating random init",

@@ -33,9 +33,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     config = load_config(args)
     if model_name(config) == "ChunkConformer":
-        dl, trainer = chunk_setup(args, config)
+        dl, trainer = chunk_setup(args, config, args.compute_dtype)
     else:
-        dl, trainer, _ = offline_ctc_setup(args, config)
+        dl, trainer, _ = offline_ctc_setup(args, config, args.compute_dtype)
     trainer.restore()
     train_iter = dl.generator(train=True, num_workers=args.data_workers,
                               prefetch_depth=2 if args.data_workers else 0)

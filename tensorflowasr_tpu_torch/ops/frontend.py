@@ -15,11 +15,14 @@ Semantics kept from the JAX package:
 - dB is applied to the POWER spectrogram and the mel matmul mixes dB
   values.
 
-:func:`power_spectrogram` dispatches on the tensor's device: a CUDA tensor
-goes to the hand-written kernel (``ops/power_spectrogram.py``), a CPU
-tensor to the plain version. The dB pass and the mel matmul stay plain
-torch: the offline dB needs a per-example global max, a second pass over
-the whole spectrogram.
+:func:`log_mel_spectrogram` and :func:`power_spectrogram` dispatch on the
+tensor's device: a CUDA tensor goes to a hand-written kernel, a CPU tensor
+to the plain version, any other device raises. On the card the log-mel is
+K1b (``ops/log_mel_spectrogram.py``): the FFT, the dB and the banded mel
+product fused in one kernel, two launches for 'same' (its per-example max
+first); a given (trainable) mel matrix takes K1 and a dense product kernel.
+The power spectrogram alone is K1 (``ops/power_spectrogram.py``), and
+:func:`spectrogram_feature` takes K1 and the plain dB pass.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tensorflowasr_tpu_torch.ops import log_mel_spectrogram as k1b
 from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 
 
@@ -170,6 +174,16 @@ def _kernel_tables(cfg: LogMelFrontendConfig, device: torch.device
     return torch.from_numpy(k1.pack_tables(hann_window(cfg.n_fft))).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _kernel_bands(cfg: LogMelFrontendConfig, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1b's schedule and weights for the fixed Slaney basis (each band's
+    exact nonzero range), uploaded once per (config, device)."""
+    bands = k1b.mel_bands(_frontend_constants(cfg)[1])
+    return (torch.from_numpy(bands.schedule).to(device),
+            torch.from_numpy(bands.weights).to(device))
+
+
 def _left_pad(t: int, cfg: LogMelFrontendConfig) -> int:
     if cfg.padding == "same":
         return _same_pad(t, cfg.n_fft, cfg.hop)[0]
@@ -233,14 +247,66 @@ def _to_db(power: torch.Tensor, cfg: LogMelFrontendConfig) -> torch.Tensor:
     return amplitude_to_db(power, dynamic_range=cfg.dynamic_range_db)
 
 
+def log_mel_spectrogram_reference(wav: torch.Tensor,
+                                  cfg: LogMelFrontendConfig,
+                                  mel_weights: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """Plain torch [B, T] -> [B, n_frames, n_mels]: the plain power
+    spectrum, the dB pass, then the mel matmul (K1b's plain version)."""
+    fb = _device_mel(cfg, wav.device) if mel_weights is None else mel_weights
+    return torch.matmul(_to_db(power_spectrogram_reference(wav, cfg), cfg),
+                        fb)
+
+
+class _FusedLogMel(torch.autograd.Function):
+    """K1b with a given mel matrix; the gradient reaches the matrix only
+    (the wav carries none, as on every path of the frontend). The backward
+    rebuilds the dB spectrum with K1 and the plain dB pass instead of
+    keeping it from the forward (at B = 128 x 8 s that is 210 MB not held
+    across the step), then ``grad_W = db^T grad`` by ``torch.matmul``."""
+
+    @staticmethod
+    def forward(ctx, wav, mel_weights, cfg):
+        ctx.save_for_backward(wav)
+        ctx.cfg = cfg
+        return k1b.log_mel_spectrogram_cuda(
+            wav, _kernel_tables(cfg, wav.device), mel_weights, cfg.n_mels,
+            cfg.hop, _left_pad(wav.shape[1], cfg),
+            same=cfg.padding == "same", dynamic_range=cfg.dynamic_range_db)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (wav,), cfg = ctx.saved_tensors, ctx.cfg
+        db = _to_db(power_spectrogram(wav, cfg), cfg)
+        grad_w = torch.matmul(db.reshape(-1, cfg.n_freq).t(),
+                              grad.reshape(-1, cfg.n_mels))
+        return None, grad_w, None
+
+
 def log_mel_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig,
                         mel_weights: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """[B, T] -> [B, n_frames, n_mels] log-mel features (dB on the power
-    spectrum first, then the mel matmul). ``mel_weights`` overrides the
-    fixed Slaney basis (the trainable filterbank)."""
-    fb = _device_mel(cfg, wav.device) if mel_weights is None else mel_weights
-    return torch.matmul(_to_db(power_spectrogram(wav, cfg), cfg), fb)
+    spectrum first, then the mel matmul). ``mel_weights`` [n_freq, n_mels]
+    overrides the fixed Slaney basis (the trainable filterbank). The K1b
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if wav.device.type == "cuda":
+        wav = wav.to(torch.float32).contiguous()
+        if mel_weights is not None:
+            if tuple(mel_weights.shape) != (cfg.n_freq, cfg.n_mels):
+                raise ValueError(f"mel_weights must be [{cfg.n_freq}, "
+                                 f"{cfg.n_mels}], got "
+                                 f"{tuple(mel_weights.shape)}")
+            return _FusedLogMel.apply(
+                wav, mel_weights.to(torch.float32).contiguous(), cfg)
+        sched, weights = _kernel_bands(cfg, wav.device)
+        return k1b.log_mel_spectrogram_cuda(
+            wav, _kernel_tables(cfg, wav.device), weights, cfg.n_mels,
+            cfg.hop, _left_pad(wav.shape[1], cfg), sched=sched,
+            same=cfg.padding == "same", dynamic_range=cfg.dynamic_range_db)
+    if wav.device.type == "cpu":
+        return log_mel_spectrogram_reference(wav, cfg, mel_weights)
+    raise ValueError(f"log_mel_spectrogram: unsupported device {wav.device}")
 
 
 def spectrogram_feature(wav: torch.Tensor, cfg: LogMelFrontendConfig

@@ -18,9 +18,12 @@ samples (three radix-8 passes in registers, two exchanges through shared
 memory), untangle it to the 513 bins of the real transform, square, and
 write each bin once. Its design notes are in the source.
 
-The host side here builds the kernel's one table (window, twiddles, untangle
-factors: numpy float64, rounded to f32 once) and chooses each launch's tile
-and slab-copy width (:func:`launch_plan`).
+The same kernel carries K1b's log-mel epilogues
+(``ops/log_mel_spectrogram.py``); :func:`launch` starts it with any epilogue.
+The host side here builds the
+kernel's one table (window, twiddles, untangle factors: numpy float64,
+rounded to f32 once) and chooses each launch's tile and slab-copy width
+(:func:`launch_plan`).
 
 ``power_spectrogram_plain`` is the plain version: the CPU path runs it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,16 +54,19 @@ TABLE_FLOATS = N_FFT + N_FFT + 2 * 64 + 2 * (N_FFT // 4 + 1)
 MAX_SMEM_BYTES = 232448           # per block on sm_90 (227 KB)
 # (tile_frames, groups) from the largest tile down; see launch_plan
 TILE_LADDER = ((32, 4), (16, 4), (8, 4), (4, 4), (2, 2), (1, 1))
+STAGE_FRAMES = 8                  # frames a block needs to stage mel weights
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The kernel library (built at first use), its C signatures set."""
     lib = build.load("power_spectrogram")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tasr_power_spectrogram.argtypes = [p, p, p] + [i] * 8 + [p]
-    lib.tasr_power_spectrogram.restype = i
-    lib.tasr_power_spectrogram_smem_bytes.argtypes = [i, i, i]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tasr_frontend.argtypes = [i] + [p] * 7 + [i] * 11 + [f, f, p]
+    lib.tasr_frontend.restype = i
+    lib.tasr_dense_mel.argtypes = [p] * 4 + [i] * 3 + [f, f, p]
+    lib.tasr_dense_mel.restype = i
+    lib.tasr_power_spectrogram_smem_bytes.argtypes = [i, i, i, i]
     lib.tasr_power_spectrogram_smem_bytes.restype = ctypes.c_longlong
     lib.tasr_cuda_error_string.argtypes = [i]
     lib.tasr_cuda_error_string.restype = ctypes.c_char_p
@@ -71,7 +77,7 @@ def _library() -> ctypes.CDLL:
         if getattr(lib, fn)() != want:
             raise RuntimeError(f"{fn}() != {want}: library and wrapper "
                                f"disagree on the kernel's layout")
-    for args in ((160, 32, 4), (81, 2, 2)):
+    for args in ((160, 32, 4, 0), (81, 2, 2, 2752)):
         if lib.tasr_power_spectrogram_smem_bytes(*args) != smem_bytes(*args):
             raise RuntimeError("library and wrapper disagree on the "
                                "kernel's shared memory")
@@ -156,13 +162,16 @@ class LaunchPlan(NamedTuple):
     vec16: bool           # 16-byte slab copies (else 4-byte)
 
 
-def smem_bytes(hop: int, tile_frames: int, groups: int) -> int:
+def smem_bytes(hop: int, tile_frames: int, groups: int,
+               w_smem: int = 0) -> int:
+    """Shared memory of one block: the slab, two exchange buffers a frame
+    in flight, then ``w_smem`` floats of staged mel weights."""
     slab = (tile_frames - 1) * hop + N_FFT
-    return -(-slab // 4) * 16 + groups * 2 * BUF_FLOAT2 * 8
+    return -(-slab // 4) * 16 + groups * 2 * BUF_FLOAT2 * 8 + 4 * w_smem
 
 
 def launch_plan(batch: int, t: int, hop: int, lo: int, sm_count: int,
-                base_aligned: bool = True) -> LaunchPlan:
+                base_aligned: bool = True, w_smem: int = 0) -> LaunchPlan:
     """Tile and copy width for one launch.
 
     The tile is the largest of ``TILE_LADDER`` that fits shared memory and
@@ -173,7 +182,7 @@ def launch_plan(batch: int, t: int, hop: int, lo: int, sm_count: int,
     aligned."""
     n_frames = num_frames(t, hop)
     fits = [(tile, groups) for tile, groups in TILE_LADDER
-            if smem_bytes(hop, tile, groups) <= MAX_SMEM_BYTES]
+            if smem_bytes(hop, tile, groups, w_smem) <= MAX_SMEM_BYTES]
     tile, groups = next(
         ((tile, groups) for tile, groups in fits
          if batch * num_frames(n_frames, tile) >= 2 * sm_count), fits[-1])
@@ -182,13 +191,15 @@ def launch_plan(batch: int, t: int, hop: int, lo: int, sm_count: int,
     return LaunchPlan(tile, groups, vec16)
 
 
-def power_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
-                           hop: int, lo: int) -> torch.Tensor:
-    """Launch K1 on ``wav``'s current stream. ``tables`` is
-    :func:`pack_tables`'s array on the same device."""
+# the kernel's compile-time epilogues (csrc/power_spectrogram.cu::Epilogue)
+EPI_POWER, EPI_LOG_MEL, EPI_POWER_MAX, EPI_LOG_MEL_FROM_POWER = 0, 1, 2, 3
+
+
+def check_wav(wav: torch.Tensor, tables: torch.Tensor, hop: int, lo: int,
+              what: str) -> None:
+    """Raise unless ``wav`` and ``tables`` are what the kernel takes."""
     if wav.device.type != "cuda":
-        raise ValueError(f"power_spectrogram_cuda needs a CUDA tensor, got "
-                         f"{wav.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {wav.device}")
     if wav.dtype != torch.float32 or wav.dim() != 2 \
             or not wav.is_contiguous():
         raise ValueError(f"wav must be contiguous float32 [B, T], got "
@@ -202,24 +213,87 @@ def power_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
     if b == 0 or t == 0 or hop <= 0 or lo < 0:
         raise ValueError(f"batch {b} x {t} samples, hop {hop}, left pad {lo} "
                          f"is outside the kernel's range")
+
+
+def launch(epi: int, wav: torch.Tensor, tables: torch.Tensor, hop: int,
+           lo: int, out: Optional[torch.Tensor] = None,
+           row_max: Optional[torch.Tensor] = None,
+           power_in: Optional[torch.Tensor] = None,
+           sched: Optional[torch.Tensor] = None, n_mels: int = 0,
+           mel_w: Optional[torch.Tensor] = None, w_smem: int = 0,
+           db_scale: float = 0.0, db_floor: float = 0.0) -> None:
+    """One launch of the kernel with epilogue ``epi`` on ``wav``'s current
+    stream; the caller has checked every tensor (:func:`check_wav`) and
+    allocated ``out`` and ``row_max``. ``w_smem`` weight floats are staged
+    in shared memory where the block gets at least :data:`STAGE_FRAMES`
+    frames (else read from device memory). Every
+    launch that runs the FFT counts as a launch of K1
+    (``power_spectrogram_cuda.launches``), whatever its epilogue. Raises
+    with CUDA's message if the launch is refused."""
     lib = _library()
+    b, t = wav.shape
     sm_count = torch.cuda.get_device_properties(wav.device)\
         .multi_processor_count
-    plan = launch_plan(b, t, hop, lo, sm_count,
-                       base_aligned=wav.data_ptr() % 16 == 0)
-    n_frames = num_frames(t, hop)
-    out = torch.empty((b, n_frames, N_FFT // 2 + 1), dtype=torch.float32,
-                      device=wav.device)
+    aligned = wav.data_ptr() % 16 == 0
+    plan = launch_plan(b, t, hop, lo, sm_count, aligned)
+    if w_smem and plan.tile_frames >= STAGE_FRAMES:
+        plan = launch_plan(b, t, hop, lo, sm_count, aligned, w_smem)
+    else:
+        w_smem = 0
+    slots = 0 if sched is None else sched.shape[0]
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
-        rc = lib.tasr_power_spectrogram(
-            wav.data_ptr(), tables.data_ptr(), out.data_ptr(), b, t, hop, lo,
-            n_frames, plan.tile_frames, plan.groups, int(plan.vec16), stream)
+        rc = lib.tasr_frontend(
+            epi, wav.data_ptr(), tables.data_ptr(), _ptr(power_in), _ptr(out),
+            _ptr(row_max), _ptr(sched), _ptr(mel_w), b, t, hop, lo,
+            num_frames(t, hop), plan.tile_frames, plan.groups,
+            int(plan.vec16), n_mels, slots, w_smem, db_scale, db_floor,
+            stream)
+    check_rc(rc, f"frontend kernel (epilogue {epi})")
+    if epi != EPI_LOG_MEL_FROM_POWER:
+        power_spectrogram_cuda.launches += 1
+
+
+def launch_dense(power: torch.Tensor, row_max: Optional[torch.Tensor],
+                 weights: torch.Tensor, out: torch.Tensor, db_scale: float,
+                 db_floor: float) -> None:
+    """One launch of the dense mel product on ``power``'s current stream:
+    out [B, F, n_mels] = dB(power [B, F, 513]) @ weights [513, n_mels], the
+    dB against ``row_max`` [B] where given ('same'). The caller has checked
+    and allocated every tensor. Raises with CUDA's message if the launch is
+    refused."""
+    b, n_frames, n_mels = out.shape
+    with torch.cuda.device(power.device):
+        stream = torch.cuda.current_stream(power.device).cuda_stream
+        rc = _library().tasr_dense_mel(
+            power.data_ptr(), _ptr(row_max), weights.data_ptr(),
+            out.data_ptr(), b * n_frames, n_frames, n_mels, db_scale,
+            db_floor, stream)
+    check_rc(rc, "dense mel kernel")
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
+def check_rc(rc: int, what: str) -> None:
+    """Raise with CUDA's message if a launch returned an error."""
     if rc != 0:
-        raise RuntimeError(f"power_spectrogram kernel launch failed: "
-                           f"{lib.tasr_cuda_error_string(rc).decode()}")
-    power_spectrogram_cuda.launches += 1
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{_library().tasr_cuda_error_string(rc).decode()}")
+
+
+def power_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
+                           hop: int, lo: int) -> torch.Tensor:
+    """Launch K1 on ``wav``'s current stream. ``tables`` is
+    :func:`pack_tables`'s array on the same device."""
+    check_wav(wav, tables, hop, lo, "power_spectrogram_cuda")
+    b, t = wav.shape
+    out = torch.empty((b, num_frames(t, hop), N_FFT // 2 + 1),
+                      dtype=torch.float32, device=wav.device)
+    launch(EPI_POWER, wav, tables, hop, lo, out=out)
     return out
 
 
+# launches of the FFT kernel, in any epilogue (K1's own and K1b's FFT passes)
 power_spectrogram_cuda.launches = 0

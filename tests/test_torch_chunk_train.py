@@ -36,7 +36,11 @@ from tests.test_torch_chunk import (
 )
 from tests.test_torch_chunk_modules import STACK, module_pair
 from tests.test_torch_data import corpus, loader_config  # noqa: F401
-from tests.test_torch_train import ZERO_GRADIENT, assert_leaves_close
+from tests.test_torch_train import (
+    ZERO_GRADIENT,
+    assert_leaves_close,
+    save_as_jax_checkpoint,
+)
 from tensorflowasr_tpu.models import chunk_conformer as jcc
 from tensorflowasr_tpu.train import chunk_trainer as jct
 from tensorflowasr_tpu.train import state as jstate
@@ -799,18 +803,63 @@ def test_chunk_train_eval_and_stream_cli(tmp_path, capsys):
                         phone_f.num_classes, char_f.num_classes)
     jtrainer.init_state({"wav": padded[None],
                          "extra_phones": np.ones((1, 4), np.int32)})
-    flat = convert.to_flax_names(trainer.state.model)
-    nested = {}
-    for name, arr in flat.items():
-        node = nested
-        *path, leaf = name.split("/")
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = jnp.asarray(arr)
-    jtrainer.state = jtrainer.state.replace(
-        params=nested["params"], batch_stats=nested["batch_stats"],
-        step=jnp.asarray(2))
-    jtrainer.save()
+    save_as_jax_checkpoint(jtrainer, trainer.state.model, 2)
+    assert jax_eval_main(["--data_config", data_yml, "--model_config",
+                          str(jax_model_yml), "--max_batches", "1"]) == 0
+    captured = capsys.readouterr()
+    assert "no checkpoint found" not in captured.err
+    want = json.loads(captured.out.strip().splitlines()[-1])
+    assert got == want
+    assert got["phone_N"] > 0 and got["char_N"] > 0
+
+
+def test_chunk_eval_cli_scores_in_f32_as_jax(tmp_path, capsys, monkeypatch):
+    """``cli.eval_am`` without ``--compute_dtype`` builds its
+    ``ChunkTrainer`` in f32, as the JAX package's ``eval_am`` does, and
+    prints the JAX CLI's error rates on the same trained weights."""
+    from tensorflowasr_tpu.cli.eval_am import main as jax_eval_main
+    from tensorflowasr_tpu.train.chunk_trainer import ChunkTrainer as JTrainer
+    from tensorflowasr_tpu.utils.config import UserConfig as JConfig
+    from tensorflowasr_tpu_torch.cli import eval_am
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.cli.train_asr import main as train_main
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    data_yml, model_yml = write_cli_corpus(tmp_path, CHUNK_CLI_MODEL)
+    common = ["--data_config", data_yml, "--model_config", model_yml,
+              "--device", "cpu"]
+    assert train_main(common + ["--compute_dtype", "float32",
+                                "--total_steps", "2",
+                                "--data_workers", "0"]) == 0
+    built, real_setup = [], eval_am.chunk_setup
+
+    def setup(*args):
+        dl, trainer = real_setup(*args)
+        built.append(trainer.model_cfg.dtype_str)
+        return dl, trainer
+
+    monkeypatch.setattr(eval_am, "chunk_setup", setup)
+    capsys.readouterr()
+    assert eval_am.main(common + ["--max_batches", "1"]) == 0
+    captured = capsys.readouterr()
+    assert "no checkpoint found" not in captured.err
+    assert built == ["float32"]
+    got = json.loads(captured.out.strip().splitlines()[-1])
+
+    config = UserConfig(data_yml, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = tct.ChunkTrainer(config, phone_f.num_classes,
+                               char_f.num_classes, device="cpu")
+    trainer.init_state()
+    assert trainer.restore() and trainer.state.step == 2
+    jax_model_yml = tmp_path / "jm.yml"
+    jax_model_yml.write_text(yaml.dump({**CHUNK_CLI_MODEL, "running_config": {
+        "batch_size": 2, "outdir": str(tmp_path / "jax_logs")}}))
+    jtrainer = JTrainer(JConfig(data_yml, str(jax_model_yml)),
+                        phone_f.num_classes, char_f.num_classes)
+    jtrainer.init_state({"wav": np.zeros((1, 2560), np.float32),
+                         "extra_phones": np.ones((1, 4), np.int32)})
+    save_as_jax_checkpoint(jtrainer, trainer.state.model, 2)
     assert jax_eval_main(["--data_config", data_yml, "--model_config",
                           str(jax_model_yml), "--max_batches", "1"]) == 0
     captured = capsys.readouterr()

@@ -12,10 +12,33 @@ import pytest
 import torch
 
 from tensorflowasr_tpu_torch.ops import frontend as fe
+from tensorflowasr_tpu_torch.ops import log_mel_spectrogram as k1b
 from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 
 # the Pallas kernel's own tolerance (tests/test_pallas_frontend.py)
 POWER_TOL = dict(rtol=2e-4, atol=2e-3)
+# K1b against its plain version on one card, both in f32: the kernels' FFT
+# and the plain DFT round differently (8.0e-5 seen at most on an H100), and
+# a bulk 'valid' log-mel of this noise is about 0.02, so atol stays under
+# 3 % of it; the Pallas kernel's 1e-3 / 5e-2 is for JAX against the port
+KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
+
+# K1's shapes (test_kernel_matches_plain_on_card), each in both paddings
+SHAPES = [(8, 7 * 16000, 16000), (16, 2560 * 3, 16000), (3, 32077, 16000),
+          (1, 7680, 16000), (2, 100, 16000), (4, 8000, 8000),
+          (4, 4011, 8000)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    # the plain version's matmuls in full f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _noise(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32) * 0.1).cuda()
 
 
 @pytest.mark.cuda
@@ -64,3 +87,150 @@ def test_kernel_takes_an_unaligned_view_on_card():
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
                                **POWER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "valid"])
+@pytest.mark.parametrize("b,t,sample_rate", SHAPES)
+def test_log_mel_kernel_matches_plain_on_card(padding, b, t, sample_rate):
+    """K1b (the fixed basis, banded) against its plain version, one FFT
+    launch a call, and a row of zeros (every bin at amin: 'same' log-mel
+    0)."""
+    _card()
+    cfg = fe.LogMelFrontendConfig(padding=padding, sample_rate=sample_rate)
+    wav = _noise((b, t), seed=t)
+    if padding == "same" and b > 1:
+        wav[1] = 0.0
+    want = fe.log_mel_spectrogram_reference(wav, cfg)
+    sched, weights = fe._kernel_bands(cfg, wav.device)
+    k1_before = k1.power_spectrogram_cuda.launches
+    k1b_before = k1b.log_mel_spectrogram_cuda.launches
+    got = k1b.log_mel_spectrogram_cuda(
+        wav, fe._kernel_tables(cfg, wav.device), weights, cfg.n_mels,
+        cfg.hop, fe._left_pad(t, cfg), sched=sched, same=padding == "same")
+    torch.cuda.synchronize()
+    assert k1b.log_mel_spectrogram_cuda.launches == k1b_before + 1
+    assert k1.power_spectrogram_cuda.launches == k1_before + 1
+    assert got.shape == (b, -(-t // cfg.hop), cfg.n_mels)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **KERNEL_LOGMEL_TOL)
+    if padding == "same" and b > 1:
+        assert float(got[1].abs().max()) == 0.0
+    # the frontend's own dispatch
+    np.testing.assert_allclose(fe.log_mel_spectrogram(wav, cfg).cpu().numpy(),
+                               want.cpu().numpy(), **KERNEL_LOGMEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "valid"])
+@pytest.mark.parametrize("b,t,n_mels", [
+    (8, 7 * 16000, 80), (3, 32077, 80), (2, 100, 80), (4, 8000, 20),
+    (2, 16000, 40), (2, 16000, 200)])
+def test_dense_mel_kernel_matches_plain_on_card(padding, b, t, n_mels):
+    """K1b with a given [513, n_mels] matrix (K1, then the dense product
+    kernel, in tiles of up to 128 bands) against its plain
+    version, with a row of zeros."""
+    _card()
+    cfg = fe.LogMelFrontendConfig(padding=padding, n_mels=n_mels)
+    wav = _noise((b, t), seed=t + 3)
+    if b > 1:
+        wav[1] = 0.0
+    fb = fe._frontend_constants(cfg)[1]
+    w = torch.from_numpy(fb + np.random.default_rng(n_mels).uniform(
+        0, 2e-3, fb.shape).astype(np.float32)).cuda()
+    want = fe.log_mel_spectrogram_reference(wav, cfg, w)
+    k1_before = k1.power_spectrogram_cuda.launches
+    k1b_before = k1b.log_mel_spectrogram_cuda.launches
+    got = fe.log_mel_spectrogram(wav, cfg, mel_weights=w)
+    torch.cuda.synchronize()
+    assert k1b.log_mel_spectrogram_cuda.launches == k1b_before + 1
+    assert k1.power_spectrogram_cuda.launches == k1_before + 1
+    assert got.shape == (b, -(-t // cfg.hop), n_mels)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **KERNEL_LOGMEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "valid"])
+def test_log_mel_kernel_with_given_weights_and_backward_on_card(padding):
+    """A trainable mel matrix (K1, then the dense product): the forward
+    against the plain version, and the gradient of the autograd function
+    against the plain version's autograd, within 1e-4 of its largest entry
+    (both take the dB of a power computed two ways, K1 and the plain DFT,
+    and the near-silent bins' logs carry their rounding)."""
+    _card()
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    wav = _noise((4, 3 * 16000 + 77), seed=21)
+    fb = fe._frontend_constants(cfg)[1]
+    w0 = torch.from_numpy(fb + np.random.default_rng(22).uniform(
+        0, 2e-3, fb.shape).astype(np.float32)).cuda()
+    n_frames = -(-wav.shape[1] // cfg.hop)
+    cot = _noise((4, n_frames, cfg.n_mels), seed=23)
+    grads = []
+    for fn in (fe.log_mel_spectrogram, fe.log_mel_spectrogram_reference):
+        w = w0.clone().requires_grad_()
+        out = fn(wav, cfg, mel_weights=w)
+        (out * cot).sum().backward()
+        grads.append((out.detach(), w.grad))
+    torch.cuda.synchronize()
+    (got, got_grad), (want, want_grad) = grads
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **KERNEL_LOGMEL_TOL)
+    scale = float(want_grad.abs().max())
+    np.testing.assert_allclose(got_grad.cpu().numpy(),
+                               want_grad.cpu().numpy(), rtol=0,
+                               atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "valid"])
+def test_log_mel_kernel_takes_unaligned_and_strided_wavs_on_card(padding):
+    """A wav whose first sample is not 16-byte aligned goes the kernel's
+    4-byte copy path; a strided view is made contiguous by the frontend.
+    Both give the log-mel of a contiguous copy."""
+    _card()
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    flat = _noise(2 * 16000 + 1, seed=24)
+    unaligned = flat[1:].view(2, 16000)
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    strided = _noise((16000, 2), seed=25).t()
+    assert not strided.is_contiguous()
+    for wav in (unaligned, strided):
+        got = fe.log_mel_spectrogram(wav, cfg)
+        want = fe.log_mel_spectrogram(wav.clone(memory_format=torch.
+                                                contiguous_format), cfg)
+        plain = fe.log_mel_spectrogram_reference(wav.contiguous(), cfg)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(),
+                                   **KERNEL_LOGMEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["same", "valid"])
+def test_log_mel_kernel_is_sync_free_and_graph_safe_on_card(padding):
+    """No implicit host sync (``set_sync_debug_mode("error")``, as the
+    chunk stream chains it) once the tables are on the card, and a CUDA
+    graph of the call replays the eager result."""
+    _card()
+    cfg = fe.LogMelFrontendConfig(padding=padding)
+    wav = _noise((2, 5120), seed=26)
+    eager = fe.log_mel_spectrogram(wav, cfg)             # uploads the tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fe.log_mel_spectrogram(wav, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fe.log_mel_spectrogram(wav, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fe.log_mel_spectrogram(wav, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager) and torch.equal(captured, eager)

@@ -645,6 +645,81 @@ def test_train_eval_cli(configs, capsys):
     assert json.loads(lines[-1])["step"] == 6
 
 
+def save_as_jax_checkpoint(jtrainer, model, step: int) -> None:
+    """The port ``model``'s weights into the JAX trainer's state at
+    ``step``, saved where the JAX package's CLIs restore from."""
+    nested = {}
+    for name, arr in convert.to_flax_names(model).items():
+        node = nested
+        *path, leaf = name.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(arr)
+    jtrainer.state = jtrainer.state.replace(
+        params=nested["params"], batch_stats=nested["batch_stats"],
+        step=jnp.asarray(step))
+    jtrainer.save()
+
+
+def test_eval_cli_scores_in_f32_as_jax(configs, capsys, monkeypatch):
+    """``cli.eval_am`` without ``--compute_dtype`` builds its trainer in
+    f32, as the JAX package's ``eval_am`` does (it builds ``CTCTrainer``
+    without a dtype), and prints the JAX CLI's error rates on the same
+    weights. The flag's default, bfloat16, is for training only."""
+    from tensorflowasr_tpu.cli.eval_am import main as jax_eval_main
+    from tensorflowasr_tpu.utils.config import UserConfig as JConfig
+    from tensorflowasr_tpu_torch.cli import eval_am
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.cli.train_asr import main as train_main
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    tmp_path, data_yml, model_yml, model_cfg = configs
+    common = ["--data_config", data_yml, "--model_config", model_yml,
+              "--device", "cpu"]
+    assert train_main(common + ["--compute_dtype", "float32",
+                                "--total_steps", "4",
+                                "--data_workers", "0"]) == 0
+    built, real_setup = [], eval_am.offline_ctc_setup
+
+    def setup(*args):
+        dl, trainer, char_f = real_setup(*args)
+        built.append(trainer.model_cfg.dtype_str)
+        return dl, trainer, char_f
+
+    monkeypatch.setattr(eval_am, "offline_ctc_setup", setup)
+    capsys.readouterr()
+    assert eval_am.main(common + ["--max_batches", "2"]) == 0
+    captured = capsys.readouterr()
+    assert "no checkpoint found" not in captured.err
+    assert built == ["float32"]
+    got = json.loads(captured.out.strip().splitlines()[-1])
+
+    # the same weights through the JAX package's eval_am
+    config = UserConfig(data_yml, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = ttrain.CTCTrainer(config, phone_f.num_classes,
+                                char_f.num_classes, phone_f.blank,
+                                device="cpu")
+    trainer.init_state()
+    assert trainer.restore() and trainer.state.step == 4
+    jax_model_yml = tmp_path / "jm.yml"
+    jax_model_yml.write_text(yaml.dump({**model_cfg, "running_config": {
+        "batch_size": 2, "outdir": str(tmp_path / "jax_logs")}}))
+    jtrainer = jtrain.CTCTrainer(JConfig(data_yml, str(jax_model_yml)),
+                                 phone_f.num_classes, char_f.num_classes,
+                                 blank_id=phone_f.blank)
+    jtrainer.init_state({"wav": np.zeros((1, 3200), np.float32),
+                         "phones": np.ones((1, 4), np.int32)})
+    save_as_jax_checkpoint(jtrainer, trainer.state.model, 4)
+    assert jax_eval_main(["--data_config", data_yml, "--model_config",
+                          str(jax_model_yml), "--max_batches", "2"]) == 0
+    captured = capsys.readouterr()
+    assert "no checkpoint found" not in captured.err
+    want = json.loads(captured.out.strip().splitlines()[-1])
+    assert got == want
+    assert got["phone_N"] == 16 and got["char_N"] == 8
+
+
 def test_cli_refuses_what_is_not_ported(configs):
     tmp_path, data_yml, model_yml, model_cfg = configs
     from tensorflowasr_tpu_torch.cli.eval_am import main as eval_main
