@@ -1,6 +1,6 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
-paths and its chunk-streaming ChunkConformer(S) serving and training paths
-on one CUDA card, and check them.
+paths, its chunk-streaming ChunkConformer(S) serving and training paths and
+its socket model server on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              path K1b replaced, at the serve shape), the plain version and
              ``torch.stft`` + the same dB and mel, with its bound counted
              both ways (the mel product dense, and banded as the kernel
-             does it).
+             does it). Then K1b with a given (trainable) [513, 80]
+             matrix (K1 + ``dense_mel_kernel``) at B=128 x 7 s, 'same' and
+             'valid', beside its plain version and ``torch.stft`` + the
+             same dB + ``torch.matmul`` by that matrix.
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -97,6 +100,22 @@ Phases, in order; any failure raises and the script exits non-zero:
              in interleaved odd-sized packets, the 4th opened when the first
              closes; each result must equal an independent
              ``ChunkStreamSession``'s on the card.
+11b. chunk_fused - the f32 model with ``fused_decoder`` set on the same
+             weights (``serve/bench_chunk.py::with_fused_decoder``) against
+             the sequential decoder micro-steps: one stream over 50 chunks
+             and a 256-slot pool over 12 ticks with random reset and advance
+             masks. Phone ids and n_final identical; char and provisional
+             ids identical except at a near-tie of the fused decoder's
+             logits (top-two gap within 1e-5 of the top logit's magnitude,
+             each reported with its gap; more than 1 % such positions
+             fails); every cache leaf within 1e-3 of its largest entry (the
+             largest error printed). Then both paths timed in turns: one
+             stream chained over 50 chunks (best of 3) and the 256-slot tick
+             (best of 10 x 25), with median, minimum and spread, every
+             implicit sync an error, K1b once a chunk and a tick exactly;
+             then each profiled at 1 and 256 slots
+             (``serve/profile_chunk.py::profile``: kernels and copies, device
+             time and wall a chunk).
 12. chunk_cli    - ``cli.test_chunk_asr --device cuda`` on an 8 s wav in a
              temporary directory (the cli phase's full-size vocabularies),
              with the f32 chunk model's weights written as a flax ``.npz``
@@ -125,12 +144,34 @@ Phases, in order; any failure raises and the script exits non-zero:
              then ``cli.eval_am`` and ``cli.test_chunk_asr`` (no
              ``--weights``) on an 8 s wav, both restoring that checkpoint:
              error rates finite, streamed phones = offline phones.
+16. serve_socket - ``cli.serve_model.build_ops`` (what ``main`` serves) on
+             phase 7's ConformerCTC(S) checkpoint and phase 15's
+             ChunkConformer(S) checkpoint, ``fused_decoder`` set in a copy
+             of the shipped chunk config, a 256-slot pool, served by
+             ``ModelServer`` on a 127.0.0.1 TCP port with the offline ops on
+             the main thread, after each checkpoint is saved again as
+             its next step with its blank bias calibrated (as
+             ``serve/bench_chunk.py`` does; else every frame decodes as
+             blank). One ``ModelClient`` streams the 8 s file
+             alone, then 4 client threads each send one file of 2 / 3.5 / 5
+             / 8 s: offline (``info``, ``encode`` a 0.48 s chunk,
+             ``ctc_logits``, ``translate``, decoded as ``ASREngine.decode``
+             does) and streamed (``stream_open``, ``stream_feed`` in
+             odd-sized packets, ``stream_close``). Every result must equal
+             the in-process ``ASREngine``'s and an independent
+             ``ChunkStreamSession``'s on the same checkpoints, none empty,
+             and the encoder rows, CTC and char logits that came over the
+             wire must be within 1e-5 of the same calls in process; a
+             failing client fails the phase. Prints each file's request round trip,
+             ``stream_feed``'s wall a chunk (median, p90) alone and with 4
+             clients, and how many chunks each tick coalesced.
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
-calls, each chunk phase's timed runs, the chunk CLI call, each dtype's
-chunk train steps and the three chunk train CLI calls, and read just after
-each; all must have launched both. K1b counts one launch a log-mel (the
+calls, each chunk phase's timed runs (the fused phase's too), the chunk
+CLI call, each dtype's chunk train steps, the three chunk train CLI calls
+and the model server's served window, and read just after each; all must
+have launched both. K1b counts one launch a log-mel (the
 launch that writes it); K1 counts every launch of the FFT kernel, in any
 epilogue: two a 'same' log-mel (the max pass and the log-mel pass), one a
 'valid' one. Where a phase knows its number of frontend calls it must be
@@ -156,6 +197,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -264,14 +306,18 @@ def phase_build() -> None:
 
 
 def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
-            log_mel: bool = False, replaced: bool = False) -> dict:
+            log_mel: bool = False, replaced: bool = False,
+            given: bool = False) -> dict:
     """Times of K1, its plain version and ``torch.stft`` on one input, and
     the bound for that input; with ``graph`` also the kernel replayed from a
     CUDA graph. With ``log_mel``, K1b instead (log_mel_spectrogram_pallas's
     counterpart, the fused kernel), its plain version (the plain power, dB
     and mel matmul) and ``torch.stft`` + ``abs()**2`` + the same dB and
     matmul, with the bound counted both ways; with ``replaced`` also K1 +
-    the plain dB and mel matmul, the path K1b replaced."""
+    the plain dB and mel matmul, the path K1b replaced. With ``given``, K1b
+    with a given (trainable) matrix, the shipped basis plus seeded noise so
+    that no entry is 0: K1 + ``dense_mel_kernel``, the plain version and
+    the library path with that matrix; its banded bound is the dense one."""
     from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
 
@@ -284,7 +330,12 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
     total = (n_frames - 1) * cfg.hop + n_fft
     padded = torch.nn.functional.pad(wav, (lo, total - lo - t))
     window = torch.hann_window(n_fft, periodic=True, device=dev)
-    mel = torch.from_numpy(fe._frontend_constants(cfg)[1]).to(dev)
+    basis = fe._frontend_constants(cfg)[1]
+    if given:
+        basis = basis + np.random.default_rng(t).uniform(
+            0, 2e-3, basis.shape).astype(np.float32)
+    mel = torch.from_numpy(basis).to(dev)
+    given_kw = {"mel_weights": mel} if given else {}
 
     def epilogue(power):
         return torch.matmul(fe._to_db(power, cfg), mel) if log_mel \
@@ -297,10 +348,10 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
 
     if log_mel:
         def kernel_fn():
-            return fe.log_mel_spectrogram(wav, cfg)
+            return fe.log_mel_spectrogram(wav, cfg, **given_kw)
 
         def plain_fn():
-            return fe.log_mel_spectrogram_reference(wav, cfg)
+            return fe.log_mel_spectrogram_reference(wav, cfg, **given_kw)
     else:
         def kernel_fn():
             return fe.power_spectrogram(wav, cfg)
@@ -344,7 +395,7 @@ def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
     if not log_mel:
         out.update(bound(frames * per_frame, 0.0))
         return out
-    nnz = int(np.count_nonzero(fe._frontend_constants(cfg)[1]))
+    nnz = int(np.count_nonzero(basis))
     out.update(bound(frames * (per_frame + 2 * nnz),
                      4.0 * (nnz + 3 * cfg.n_mels)))
     out["dense"] = bound(frames * (per_frame + 2 * n_freq * cfg.n_mels),
@@ -478,6 +529,18 @@ def phase_kernel() -> dict:
     # with the same dB and mel
     k1b = time_k1("same", 128, 7 * SR, reps=50, log_mel=True, replaced=True)
     log_k1b("kernel", f"same B=128 T={7 * SR} (serve)", k1b)
+    # a given (trainable) [513, 80] matrix at that shape, both paddings
+    given = {}
+    for padding in ("same", "valid"):
+        times = time_k1(padding, 128, 7 * SR, reps=50, log_mel=True,
+                        given=True)
+        log_k1b("kernel", f"{padding} B=128 T={7 * SR} with a given [513, "
+                f"80] matrix (K1 + dense_mel_kernel)", times)
+        given[padding] = {"ms": times["kernel"]["median"],
+                          "plain_ms": times["plain"]["median"],
+                          "library_ms": times["library"]["median"],
+                          "dense_bound_ms": times["dense"]["bound_ms"],
+                          "dense_bound_by": times["dense"]["bound_by"]}
     k1b_train = time_k1("same", TRAIN_B, TRAIN_SECONDS * SR, reps=50,
                         log_mel=True)
     log_k1b("kernel", f"same B={TRAIN_B} T={TRAIN_SECONDS * SR} (train)",
@@ -529,6 +592,7 @@ def phase_kernel() -> dict:
             f"({times['bytes']:.4e} B)")
     result["train_shape"] = k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
     result["log_mel"] = {
+        "given_matrix": given,
         "serve": k1_numbers(128, 7 * SR, k1b),
         "train": k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, k1b_train),
         "request": k1_numbers(1, REQUEST_SAMPLES, k1b_request)}
@@ -923,34 +987,35 @@ def write_corpus(root: str, n_utts: int = 40) -> str:
     return put("data.yml", yaml.safe_dump(data))
 
 
-def phase_cli() -> tuple:
-    """Returns K1's and K1b's launches in the two CLI calls."""
+def phase_cli(tmp: str) -> tuple:
+    """In ``tmp``, which keeps the corpus and the checkpoints for the
+    serve_socket phase. Returns K1's and K1b's launches in the two CLI
+    calls."""
     from tensorflowasr_tpu_torch.cli import eval_am, train_asr
 
     root = os.path.dirname(os.path.abspath(__file__))
     model_yml = os.path.join(root, "configs", "conformerS.yml")
-    with tempfile.TemporaryDirectory() as tmp:
-        data_yml = write_corpus(tmp)
-        common = ["--data_config", data_yml, "--model_config", model_yml,
-                  "--device", "cuda", "--data_workers", "2"]
+    data_yml = write_corpus(tmp)
+    common = ["--data_config", data_yml, "--model_config", model_yml,
+              "--device", "cuda", "--data_workers", "2"]
 
-        def run():
-            t0 = time.perf_counter()
-            if train_asr.main(common + ["--total_steps", "6"]) != 0:
-                raise AssertionError("cli.train_asr failed")
-            t_train = time.perf_counter() - t0
-            out, err = io.StringIO(), io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc = eval_am.main(common + ["--max_batches", "2"])
-            return rc, out.getvalue(), err.getvalue(), t_train, \
-                time.perf_counter() - t0
+    def run():
+        t0 = time.perf_counter()
+        if train_asr.main(common + ["--total_steps", "6"]) != 0:
+            raise AssertionError("cli.train_asr failed")
+        t_train = time.perf_counter() - t0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = eval_am.main(common + ["--max_batches", "2"])
+        return rc, out.getvalue(), err.getvalue(), t_train, \
+            time.perf_counter() - t0
 
-        (rc, out, err, t_train, t_eval), launches = counted(run)
-        ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
-        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+    (rc, out, err, t_train, t_eval), launches = counted(run)
+    ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
+    with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
     if rc != 0 or "no checkpoint found" in err:
         raise AssertionError(f"cli.eval_am: rc {rc}, stderr {err[-400:]}")
     if ckpts != ["ckpt_000000003.pt", "ckpt_000000006.pt"]:
@@ -1390,6 +1455,249 @@ def phase_chunk_cli(model) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The fused decoder phase (fused_decoder: true) against the sequential one
+# ---------------------------------------------------------------------------
+
+FUSED_POOL_TICKS = 12
+NEAR_TIE = 1e-5          # a top-two gap within this share of the logit
+NEAR_TIE_SHARE = 0.01    # the most positions a path may differ at, so
+
+
+class IdDiffs:
+    """Char and provisional ids of the fused path against the sequential
+    one. The fused decoder's logits of each step are caught by a forward
+    hook; an id that differs is accepted only at a near-tie of those
+    logits (top-two gap <= NEAR_TIE of the top logit's magnitude), found
+    through the row of the decoder's buffer [ring | frames] that emitted
+    it: real index k is ring row wb - rf + k for k < rf, else the frame of
+    the (k - rf)-th kept frame."""
+
+    def __init__(self, fused):
+        self.wb = fused.cfg.decoder.lookahead
+        self.blank = fused.phone_blank
+        self.logits = None
+        self.positions = self.near_ties = 0
+        self.gaps = []
+
+        def hook(_module, _inputs, out):
+            self.logits = out
+
+        self.handle = fused.decoder.fully_connected.register_forward_hook(
+            hook)
+
+    def check(self, seq_out, fused_out, rf, rows, what: str) -> None:
+        """seq_out / fused_out: one step's (phone, char, prov, n_final) on
+        the host; rf [B] the decoder ring fill before the step; ``rows``
+        the streams to compare."""
+        (ph_s, ch_s, pv_s, nf_s), (ph_f, ch_f, pv_f, nf_f) = \
+            seq_out, fused_out
+        if not (np.array_equal(ph_s[rows], ph_f[rows])
+                and np.array_equal(nf_s[rows], nf_f[rows])):
+            raise AssertionError(f"{what}: phone ids or n_final differ")
+        wb, t = self.wb, ph_s.shape[1]
+        for b in rows:
+            self.positions += int((ch_s[b] >= 0).sum())
+            self.positions += int((pv_s[b] >= 0).sum())
+            if np.array_equal(ch_s[b], ch_f[b]) and \
+                    np.array_equal(pv_s[b], pv_f[b]):
+                continue
+            if not (np.array_equal(ch_s[b] >= 0, ch_f[b] >= 0)
+                    and np.array_equal(pv_s[b] >= 0, pv_f[b] >= 0)):
+                raise AssertionError(f"{what}: stream {b} emits at other "
+                                     f"positions")
+            keep = (ph_f[b] != self.blank) & \
+                (np.arange(t) >= t - nf_f[b])
+            r = min(int(rf[b]), wb)
+            real = [wb - r + k for k in range(r)] + \
+                [wb + int(f) for f in np.nonzero(keep)[0]]
+            n = int(keep.sum())
+            n_adv, new_rf = max(r + n - wb, 0), min(r + n, wb)
+            diffs = [real[k] for k, (a, c) in enumerate(
+                zip(ch_s[b][ch_s[b] >= 0], ch_f[b][ch_f[b] >= 0])) if a != c]
+            diffs += [real[n_adv + s - (wb - new_rf)]
+                      for s in range(len(pv_s[b]))
+                      if pv_s[b][s] >= 0 and pv_s[b][s] != pv_f[b][s]]
+            for row in diffs:
+                top = self.logits[b, row].float().topk(2).values
+                gap = float(top[0] - top[1])
+                self.gaps.append(gap)
+                if gap > NEAR_TIE * abs(float(top[0])):
+                    raise AssertionError(
+                        f"{what}: stream {b} differs at a top-two gap of "
+                        f"{gap:.3e} (top logit {float(top[0]):.3e})")
+                self.near_ties += 1
+
+    def close(self) -> str:
+        self.handle.remove()
+        if self.positions == 0:
+            raise AssertionError("no char was emitted: nothing compared")
+        if self.near_ties > NEAR_TIE_SHARE * max(self.positions, 1):
+            raise AssertionError(f"{self.near_ties} near-ties of "
+                                 f"{self.positions} positions")
+        gaps = (f", top-two gaps {', '.join(f'{g:.3e}' for g in self.gaps)}"
+                if self.gaps else "")
+        return (f"{self.positions} char and provisional positions, "
+                f"{self.near_ties} differing at a near-tie{gaps}")
+
+
+def cache_error(got: dict, want: dict) -> float:
+    """The largest error of a cache leaf over that leaf's largest entry;
+    raises above 1e-3."""
+    worst = 0.0
+    for k, v in want.items():
+        if v.numel() == 0:                     # a ring of width 0
+            continue
+        scale = max(float(v.float().abs().max()), 1e-30)
+        err = float((got[k].float() - v.float()).abs().max()) / scale
+        if err > 1e-3:
+            raise AssertionError(f"cache {k}: error {err:.3e} of its "
+                                 f"largest entry")
+        worst = max(worst, err)
+    return worst
+
+
+def step_host(out) -> tuple:
+    return tuple(x.cpu().numpy() for x in out[:4])
+
+
+def spread_ms(times: list) -> str:
+    ms = [x * 1e3 for x in times]
+    return (f"median {statistics.median(ms):.3f} min {min(ms):.3f} spread "
+            f"{max(ms) - min(ms):.3f} ms")
+
+
+def phase_chunk_fused(models: dict) -> tuple:
+    """The fused decoder phase (``fused_decoder`` set by
+    ``dataclasses.replace`` on the same f32 weights) against the sequential
+    micro-steps: one stream over 50 chunks and a 256-slot pool with reset
+    and advance masks, ids (near-ties reported), caches within 1e-3 of each
+    leaf's largest entry; then both timed in turns, one stream chained
+    (best of 3) and the 256-slot tick (best of 10 x 25), every implicit
+    sync an error; then kernels and copies a chunk of each from
+    ``serve/profile_chunk.py``. Returns K1's and K1b's launches in the
+    timed runs."""
+    from tensorflowasr_tpu_torch.serve.bench_chunk import with_fused_decoder
+    from tensorflowasr_tpu_torch.serve.profile_chunk import profile
+
+    dev = torch.device("cuda")
+    seq = models["float32"]
+    fused = with_fused_decoder(seq)
+    signal = tones(STREAM_CHUNKS * CHUNK_S, seed=70)             # 8 s
+    chunks = torch.from_numpy(signal.reshape(STREAM_CHUNKS, 1, -1)).to(dev)
+
+    # one stream, step by step
+    diffs, worst = IdDiffs(fused), 0.0
+    with torch.no_grad():
+        caches = {m: m.init_stream_caches(1) for m in (seq, fused)}
+        for i in range(STREAM_CHUNKS):
+            rf = caches[fused]["dec_ring_fill"].cpu().numpy()
+            outs = {}
+            for m in (seq, fused):
+                out = m.fused_stream_step(chunks[i], caches[m])
+                caches[m] = out[4]
+                outs[m] = step_host(out)
+            diffs.check(outs[seq], outs[fused], rf, [0], f"chunk {i}")
+            worst = max(worst, cache_error(caches[fused], caches[seq]))
+    log(f"chunk_fused: one f32 stream, {STREAM_CHUNKS} chunks, fused "
+        f"against sequential: phone ids and n_final identical; "
+        f"{diffs.close()}; caches within {worst:.3e} of each leaf's largest "
+        f"entry")
+
+    # a 256-slot pool with reset and advance masks
+    rng = np.random.default_rng(11)
+    pool = np.stack([tones(FUSED_POOL_TICKS * CHUNK_S, seed=500 + i)
+                     for i in range(POOL_SLOTS)]).reshape(
+        POOL_SLOTS, FUSED_POOL_TICKS, CHUNK_SAMPLES)
+    pos = np.zeros(POOL_SLOTS, int)
+    diffs, worst, advanced = IdDiffs(fused), 0.0, 0
+    with torch.no_grad():
+        caches = {m: m.init_multi_stream_caches(POOL_SLOTS)
+                  for m in (seq, fused)}
+        for tick in range(FUSED_POOL_TICKS):
+            adv = rng.random(POOL_SLOTS) < 0.8
+            reset = (rng.random(POOL_SLOTS) < 0.05) | (tick == 0)
+            pos[reset] = 0
+            wav = torch.from_numpy(pool[np.arange(POOL_SLOTS),
+                                        np.minimum(pos, FUSED_POOL_TICKS - 1)]
+                                   ).to(dev)
+            rf = np.where(reset, 0,
+                          caches[fused]["dec_ring_fill"].cpu().numpy())
+            outs = {}
+            for m in (seq, fused):
+                out = m.batched_stream_step(
+                    wav, caches[m], torch.from_numpy(reset).to(dev),
+                    torch.from_numpy(adv).to(dev))
+                caches[m] = out[4]
+                outs[m] = step_host(out)
+            diffs.check(outs[seq], outs[fused], rf, np.nonzero(adv)[0],
+                        f"tick {tick}")
+            worst = max(worst, cache_error(caches[fused], caches[seq]))
+            pos += adv
+            advanced += int(adv.sum())
+    log(f"chunk_fused: {POOL_SLOTS}-slot pool, {FUSED_POOL_TICKS} ticks "
+        f"with reset and advance masks ({advanced} slot steps advanced), "
+        f"fused against sequential: phone ids and n_final identical; "
+        f"{diffs.close()}; caches within {worst:.3e} of each leaf's largest "
+        f"entry")
+
+    # times, the two paths in turns
+    first = torch.from_numpy(pool[:, 0].copy()).to(dev)
+    stream_t = {seq: [], fused: []}
+    tick_t = {seq: [], fused: []}
+
+    def timed():
+        for rep in range(max(STREAM_REPS, POOL_REPS)):
+            order = (seq, fused) if rep % 2 == 0 else (fused, seq)
+            for m in order:
+                state = {}
+                if rep < STREAM_REPS:
+                    state["caches"], state["i"] = m.init_stream_caches(1), 0
+
+                    def step():
+                        out = m.fused_stream_step(chunks[state["i"]],
+                                                  state["caches"])
+                        state["caches"] = out[4]
+                        state["i"] += 1
+
+                    stream_t[m].append(chained(step, STREAM_CHUNKS))
+                state["caches"] = m.init_multi_stream_caches(POOL_SLOTS)
+
+                def tick():
+                    *_, state["caches"] = m.batched_stream_step(
+                        first, state["caches"])
+
+                tick_t[m].append(chained(tick, POOL_TICKS))
+
+    with torch.no_grad():
+        for m in (seq, fused):                                 # warm-up
+            m.fused_stream_step(chunks[0], m.init_stream_caches(1))
+            m.batched_stream_step(first,
+                                  m.init_multi_stream_caches(POOL_SLOTS))
+        _, launches = counted(timed)
+    expect(launches, 2 * (STREAM_REPS * STREAM_CHUNKS
+                          + POOL_REPS * POOL_TICKS),
+           "the timed fused and sequential steps")
+    numbers = {}
+    for name, m in (("sequential", seq), ("fused", fused)):
+        s, k = min(stream_t[m]), min(tick_t[m])
+        numbers[name] = {"stream_ms": s * 1e3, "tick_ms": k * 1e3}
+        log(f"chunk_fused: f32 {name} decoder: one stream chained "
+            f"({STREAM_CHUNKS} chunks, one sync, no implicit sync) "
+            f"{spread_ms(stream_t[m])} a chunk over {STREAM_REPS}, best RTF "
+            f"{s / CHUNK_S:.4f}; {POOL_SLOTS}-slot tick chained "
+            f"{spread_ms(tick_t[m])} over {POOL_REPS} x {POOL_TICKS}, best "
+            f"{POOL_SLOTS * CHUNK_S / k:.1f} streams in real time")
+
+    # kernels and copies a chunk, profiled
+    with torch.no_grad():
+        for slots in (1, POOL_SLOTS):
+            for name, m in (("sequential", seq), ("fused", fused)):
+                numbers[name][f"profile_{slots}"] = profile(m, slots, top=8)
+    log("chunk_fused: " + json.dumps({"chunk_fused": numbers}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Chunk training: ChunkTrainer on ChunkConformer(S)
 # ---------------------------------------------------------------------------
 
@@ -1587,44 +1895,44 @@ def phase_chunk_train_card_vs_cpu() -> None:
                              f"with the CPU (picks {picked} / {picked_cpu})")
 
 
-def phase_chunk_train_cli() -> int:
+def phase_chunk_train_cli(tmp: str) -> int:
     """``cli.train_asr`` with the chunk config, then ``cli.eval_am`` and
-    ``cli.test_chunk_asr`` restoring its checkpoint. Returns K1's and K1b's
-    launches."""
+    ``cli.test_chunk_asr`` restoring its checkpoint, in ``tmp``, which keeps
+    the corpus and the checkpoint for the serve_socket phase. Returns K1's
+    and K1b's launches."""
     from tensorflowasr_tpu_torch.cli import eval_am, test_chunk_asr, train_asr
     from tensorflowasr_tpu_torch.utils.audio import write_wav
 
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        data_yml = write_corpus(tmp)
-        wav_path = os.path.join(tmp, "utt.wav")
-        write_wav(wav_path, tones(CLI_CHUNKS * CHUNK_S, seed=91), SR)
-        common = ["--data_config", data_yml, "--model_config",
-                  os.path.join(root, "configs", "chunk_conformerS.yml"),
-                  "--device", "cuda", "--compute_dtype", "float32"]
+    data_yml = write_corpus(tmp)
+    wav_path = os.path.join(tmp, "utt.wav")
+    write_wav(wav_path, tones(CLI_CHUNKS * CHUNK_S, seed=91), SR)
+    common = ["--data_config", data_yml, "--model_config",
+              os.path.join(root, "configs", "chunk_conformerS.yml"),
+              "--device", "cuda", "--compute_dtype", "float32"]
 
-        def quiet(main, args):
-            out, err = io.StringIO(), io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc = main(args)
-            return rc, out.getvalue(), err.getvalue(), \
-                time.perf_counter() - t0
+    def quiet(main, args):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = main(args)
+        return rc, out.getvalue(), err.getvalue(), \
+            time.perf_counter() - t0
 
-        def run():
-            t0 = time.perf_counter()
-            if train_asr.main(common + ["--total_steps", "3",
-                                        "--data_workers", "2"]) != 0:
-                raise AssertionError("cli.train_asr (chunk) failed")
-            return (time.perf_counter() - t0,
-                    quiet(eval_am.main, common + ["--max_batches", "1"]),
-                    quiet(test_chunk_asr.main, common + ["--wav", wav_path]))
+    def run():
+        t0 = time.perf_counter()
+        if train_asr.main(common + ["--total_steps", "3",
+                                    "--data_workers", "2"]) != 0:
+            raise AssertionError("cli.train_asr (chunk) failed")
+        return (time.perf_counter() - t0,
+                quiet(eval_am.main, common + ["--max_batches", "1"]),
+                quiet(test_chunk_asr.main, common + ["--wav", wav_path]))
 
-        (t_train, evaluated, tested), launches = counted(run)
-        ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
-        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
+    (t_train, evaluated, tested), launches = counted(run)
+    ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
+    with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
     for what, (rc, _, err, _) in (("eval_am", evaluated),
                                   ("test_chunk_asr", tested)):
         if rc != 0 or "no checkpoint found" in err:
@@ -1659,6 +1967,325 @@ def phase_chunk_train_cli() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The socket model server: cli.serve_model's build_ops on a TCP port
+# ---------------------------------------------------------------------------
+
+SOCKET_SECONDS = (2.0, 3.5, 5.0, 8.0)
+SOCKET_PACKETS = (2203, 777, 4100, 1501)      # odd-sized stream_feed packets
+
+
+def offline_request(client, wav: np.ndarray) -> dict:
+    """What ``asr_client`` does for one file, as ``ASREngine.decode`` does
+    it: ``info``, ``encode`` for each chunk, the encoder rows padded to
+    whole groups of 4 chunks, ``ctc_logits``, greedy CTC on the host, the
+    phones padded with 10 zeros, ``translate``. Returns the ids and the
+    times."""
+    t0 = time.perf_counter()
+    cs = int(client.call("info")[0][0])
+    calls = []
+    encs = []
+    for i in range(0, len(wav), cs):
+        c0 = time.perf_counter()
+        encs.append(client.call("encode", wav[None, i:i + cs])[0])
+        calls.append(time.perf_counter() - c0)
+    frames = encs[0].shape[0]                 # a whole chunk's rows
+    enc = np.concatenate(encs)
+    groups = -(-(-(-len(enc) // frames)) // 4) * 4
+    buf = np.zeros((groups * frames, enc.shape[1]), np.float32)
+    buf[:len(enc)] = enc
+    logits = client.call("ctc_logits", buf)[0]
+    blank = logits.shape[-1] - 1
+    ids = logits[:len(enc)].argmax(-1)
+    phones = [int(p) for j, p in enumerate(ids)
+              if p != blank and (j == 0 or p != ids[j - 1])]
+    padded = np.zeros((1, len(buf) + 10), np.int32)
+    padded[0, :len(phones)] = phones
+    char_logits = client.call("translate", padded, buf)[0]
+    return {"phones": phones, "chars": char_logits.argmax(-1).tolist(),
+            "wall": time.perf_counter() - t0, "encode_calls": calls,
+            "tensors": (encs, buf, logits, padded, char_logits)}
+
+
+def stream_request(client, wav: np.ndarray, cs: int) -> dict:
+    """``stream_open``, ``stream_feed`` in odd-sized packets,
+    ``stream_close``; each feed's wall over the chunks it completed."""
+    slot = client.call("stream_open")[0]
+    per_chunk, buffered, off, k = [], 0, 0, 0
+    while off < len(wav):
+        pkt = wav[off:off + SOCKET_PACKETS[k % len(SOCKET_PACKETS)]]
+        off, k = off + len(pkt), k + 1
+        t0 = time.perf_counter()
+        client.call("stream_feed", slot, pkt)
+        wall = time.perf_counter() - t0
+        done, buffered = divmod(buffered + len(pkt), cs)
+        if done:
+            per_chunk.extend([wall / done] * done)
+    ph, ch = client.call("stream_close", slot)
+    return {"phone_ids": ph.tolist(), "char_ids": ch.tolist(),
+            "per_chunk": per_chunk}
+
+
+def pct(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+@torch.no_grad()
+def calibrate_checkpoints(cli_data: str, model_yml: str, chunk_data: str,
+                          chunk_yml: str) -> str:
+    """Save each CLI phase's newest checkpoint again as its next step with
+    the blank bias moved by the median margin of the blank logit on 4 x 4
+    s of gated tones (the chunk model also with its first conv x10:
+    ``serve/bench_chunk.py::calibrate``): a few steps from a random init
+    decode every frame as blank, and the served ids would be empty."""
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.serve.bench_chunk import calibrate
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    config = UserConfig(cli_data, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                         blank_id=phone_f.blank, device="cuda")
+    ctrainer = ChunkTrainer(UserConfig(chunk_data, chunk_yml),
+                            phone_f.num_classes, char_f.num_classes,
+                            device="cuda")
+    for t in (trainer, ctrainer):
+        t.init_state()
+        if not t.restore():
+            raise AssertionError(f"no checkpoint under {t.outdir}")
+    model = trainer.state.model.eval()
+    warm = torch.from_numpy(np.stack([tones(4.0, seed=60 + i)
+                                      for i in range(4)])).to(trainer.device)
+    logits = model.ctc_logits(model.encode(warm))
+    blank = model.num_phone_classes - 1
+    margin = (logits[..., blank] - logits[..., :blank].amax(-1)).median()
+    model.ctc_decoder.fully_connected.bias[blank] -= margin
+    moved = calibrate(ctrainer.state.model)
+    for t in (trainer, ctrainer):
+        t.state.step += 1
+        t.save()
+    return (f"blank biases moved by {-float(margin):.4f} (offline) and "
+            f"{moved:.4f} (chunk, first conv x10), saved as steps "
+            f"{trainer.state.step} and {ctrainer.state.step}")
+
+
+def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
+    """``cli.serve_model``'s ``build_ops`` (the code ``main`` runs) on the
+    cli phase's ConformerCTC(S) checkpoint and the chunk train CLI's
+    ChunkConformer(S) checkpoint, with ``fused_decoder`` set in a copy of
+    the shipped chunk config and a 256-slot pool, served on a 127.0.0.1
+    TCP port with the offline ops on this thread. One client streams the 8
+    s file alone; then 4 client threads each send one file of 2 / 3.5 / 5 /
+    8 s, as an offline request and as a stream. Each result must equal the
+    in-process ``ASREngine``'s and an independent ``ChunkStreamSession``'s
+    on the same checkpoints. Returns K1's and K1b's launches in the served
+    window."""
+    import yaml
+
+    from tensorflowasr_tpu_torch.cli import serve_model
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.serve.chunk_session import (
+        ChunkStreamSession,
+    )
+    from tensorflowasr_tpu_torch.serve.engines import ASREngine
+    from tensorflowasr_tpu_torch.serve.model_server import (
+        ModelClient,
+        ModelServer,
+    )
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_yml = os.path.join(root, "configs", "conformerS.yml")
+    with open(os.path.join(root, "configs", "chunk_conformerS.yml")) as f:
+        chunk_cfg = yaml.safe_load(f)
+    chunk_cfg["model_config"]["fused_decoder"] = True
+    chunk_yml = os.path.join(chunk_dir, "chunk_conformerS_fused.yml")
+    with open(chunk_yml, "w") as f:
+        yaml.safe_dump(chunk_cfg, f)
+    cli_data = os.path.join(cli_dir, "data.yml")
+    chunk_data = os.path.join(chunk_dir, "data.yml")
+    calibrated = calibrate_checkpoints(cli_data, model_yml, chunk_data,
+                                       chunk_yml)
+    args = serve_model.parser().parse_args([
+        "--data_config", cli_data, "--model_config", model_yml,
+        "--chunk_data_config", chunk_data, "--chunk_model_config", chunk_yml,
+        "--stream_slots", str(POOL_SLOTS), "--stream_wait_ms", "8",
+        "--port", "0", "--device", "cuda", "--compute_dtype", "float32",
+        "--log_level", "WARNING"])
+    t0 = time.perf_counter()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ops, inline_ops, front = serve_model.build_ops(args)
+    if "checkpoint under" in err.getvalue():
+        raise AssertionError(f"serve_model: {err.getvalue()[-400:]}")
+    built = time.perf_counter() - t0
+
+    # the references: the same checkpoints restored independently
+    wavs = [tones(s, seed=400 + i) for i, s in enumerate(SOCKET_SECONDS)]
+    config = UserConfig(cli_data, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                         blank_id=phone_f.blank, device="cuda")
+    trainer.init_state()
+    ctrainer = ChunkTrainer(UserConfig(chunk_data, chunk_yml),
+                            phone_f.num_classes, char_f.num_classes,
+                            device="cuda")
+    ctrainer.init_state()
+    if not (trainer.restore() and ctrainer.restore()):
+        raise AssertionError("a checkpoint did not restore")
+    engine = ASREngine(trainer.state.model.eval(),
+                       sample_rate=trainer.sample_rate)
+    cmodel = ctrainer.state.model.eval()
+    if not cmodel.cfg.fused_decoder:
+        raise AssertionError("the chunk model does not run fused")
+    offline_want, stream_want = [], []
+    for w in wavs:
+        encs = [engine.extract_feature(w[i:i + engine.chunk_samples])
+                for i in range(0, len(w), engine.chunk_samples)]
+        ids, lens, chars = engine._decode(encs, engine.pad_chunks)
+        offline_want.append((ids[0, :lens[0]].tolist(), chars[0].tolist(),
+                             encs))
+        session = ChunkStreamSession(cmodel, device="cuda")
+        session.feed(w)
+        stream_want.append(session.flush())
+    del trainer, ctrainer
+
+    srv = front._srv
+    cs = srv.cfg.chunk_samples
+    coalesced = []
+    dispatch = srv._dispatch
+
+    def spy(adv):
+        coalesced.append(int(adv.sum()))
+        return dispatch(adv)
+
+    srv._dispatch = spy
+    server = ModelServer(ops, tcp_port=0, inline_exec=False,
+                         inline_ops=inline_ops)
+    results = {"alone": None, "offline": [None] * 4, "stream": [None] * 4}
+    failures = []
+
+    def client_alone():
+        client = ModelClient(tcp_port=server.tcp_port)
+        try:
+            results["alone"] = stream_request(client, wavs[-1], cs)
+        finally:
+            client.close()
+
+    def client(i):
+        cli = ModelClient(tcp_port=server.tcp_port)
+        try:
+            results["offline"][i] = offline_request(cli, wavs[i])
+            results["stream"][i] = stream_request(cli, wavs[i], cs)
+        finally:
+            cli.close()
+
+    def guarded(fn, *a):
+        try:
+            fn(*a)
+        except BaseException as e:            # raised on the main thread
+            failures.append(e)
+
+    def drive():
+        try:
+            t = threading.Thread(target=guarded, args=(client_alone,),
+                                 daemon=True)
+            t.start()
+            t.join(timeout=300)
+            threads = [threading.Thread(target=guarded, args=(client, i),
+                                        daemon=True) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads):
+                failures.append(AssertionError("a client hung"))
+        finally:
+            server.stop()
+
+    def serve():
+        server.start()
+        clients = threading.Thread(target=drive, daemon=True)
+        clients.start()
+        server.run_worker_loop()          # the offline ops, this thread
+        clients.join(timeout=30)
+
+    t0 = time.perf_counter()
+    _, launches = counted(serve)
+    served = time.perf_counter() - t0
+    front.shutdown()
+    if failures:
+        raise failures[0]
+    encodes = sum(-(-len(w) // engine.chunk_samples) for w in wavs)
+    expect(launches, encodes + len(coalesced),
+           f"the served window ({encodes} encodes, {len(coalesced)} ticks)")
+    # the tensors that came over the wire against the same calls in
+    # process, within 1e-5 of each one's largest entry
+    model, dev, worst = engine.model, engine.device, 0.0
+
+    def rel(got, want) -> float:
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        if err > 1e-5:
+            raise AssertionError(f"a served tensor is {err:.3e} off")
+        return err
+
+    for i, w in enumerate(wavs):
+        off, st = results["offline"][i], results["stream"][i]
+        encs, buf, logits, padded, char_logits = off["tensors"]
+        for got, want in zip(encs, offline_want[i][2]):
+            worst = max(worst, rel(got, want))
+        with torch.no_grad():
+            enc = torch.from_numpy(buf[None]).to(dev)
+            worst = max(worst, rel(logits, model.ctc_logits(enc)[0].cpu()
+                                   .numpy()))
+            worst = max(worst, rel(char_logits, model.translate(
+                torch.from_numpy(padded).to(dev), enc)[0].cpu().numpy()))
+        if (off["phones"], off["chars"]) != offline_want[i][:2]:
+            raise AssertionError(f"file {i}: the offline request differs "
+                                 f"from ASREngine's decode")
+        want = stream_want[i]
+        if [st["phone_ids"], st["char_ids"]] != [want["phone_ids"],
+                                                 want["char_ids"]]:
+            raise AssertionError(f"file {i}: the stream differs from an "
+                                 f"independent ChunkStreamSession's")
+    if [results["alone"]["phone_ids"], results["alone"]["char_ids"]] != [
+            stream_want[-1]["phone_ids"], stream_want[-1]["char_ids"]]:
+        raise AssertionError("the lone stream differs from its session's")
+    four = [x for st in results["stream"] for x in st["per_chunk"]]
+    alone = results["alone"]["per_chunk"]
+    log(f"serve_socket: checkpoints of phases 7 and 15, {calibrated}; "
+        f"cli.serve_model build_ops (restore, build, warm) {built:.2f} s; "
+        f"{len(wavs)} files of {SOCKET_SECONDS} s over "
+        f"127.0.0.1:{server.tcp_port}, offline and streamed, = ASREngine "
+        f"and independent ChunkStreamSessions (phones "
+        f"{[len(o[0]) for o in offline_want]} offline; phones "
+        f"{[len(s['phone_ids']) for s in stream_want]}, chars "
+        f"{[len(s['char_ids']) for s in stream_want]} streamed); encoder "
+        f"rows, CTC and char logits over the wire within {worst:.3e} of the "
+        f"in-process calls; served window {served:.2f} s")
+    if not all(o[0] for o in offline_want) or not all(
+            s["phone_ids"] for s in stream_want):
+        raise AssertionError("a decode is empty: nothing was compared")
+    for i, s in enumerate(SOCKET_SECONDS):
+        off = results["offline"][i]
+        log(f"serve_socket: {s} s file, offline request round trip (info, "
+            f"{len(off['encode_calls'])} encodes, ctc_logits, translate) "
+            f"{off['wall'] * 1e3:.3f} ms; encode round trip median "
+            f"{statistics.median(off['encode_calls']) * 1e3:.3f} ms")
+    log(f"serve_socket: stream_feed wall a chunk, 1 client (8 s file, "
+        f"{len(alone)} chunks): median {pct(alone, 50):.3f} p90 "
+        f"{pct(alone, 90):.3f} ms; 4 concurrent clients ({len(four)} "
+        f"chunks): median {pct(four, 50):.3f} p90 {pct(four, 90):.3f} ms; "
+        f"{len(coalesced)} ticks coalesced {sum(coalesced)} chunks (mean "
+        f"{statistics.mean(coalesced):.2f}, max {max(coalesced)}, "
+        f"{sum(c > 1 for c in coalesced)} ticks with more than one)")
+    return launches
+
+
 
 def main() -> int:
     name = phase_device()
@@ -1670,28 +2297,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = phase_train()
     phase_train_card_vs_cpu()
-    cli = phase_cli()
-    torch.cuda.empty_cache()
-    k1_chunk = phase_chunk_kernel()
-    models = chunk_models_logged()
-    chunk = {"offline": phase_chunk_offline(models),
-             "stream": phase_chunk_stream(models),
-             "pool": phase_chunk_pool(models),
-             "cli": phase_chunk_cli(models["float32"])}
-    del models
-    torch.cuda.empty_cache()
-    chunk["chunk_train"] = phase_chunk_train()
-    phase_chunk_train_card_vs_cpu()
-    chunk["train_cli"] = phase_chunk_train_cli()
+    # the two CLI phases' corpora and checkpoints stay for serve_socket
+    with tempfile.TemporaryDirectory() as work:
+        cli_dir, chunk_dir = (os.path.join(work, d) for d in ("cli", "chunk"))
+        os.makedirs(cli_dir)
+        os.makedirs(chunk_dir)
+        cli = phase_cli(cli_dir)
+        torch.cuda.empty_cache()
+        k1_chunk = phase_chunk_kernel()
+        models = chunk_models_logged()
+        chunk = {"offline": phase_chunk_offline(models),
+                 "stream": phase_chunk_stream(models),
+                 "pool": phase_chunk_pool(models),
+                 "fused": phase_chunk_fused(models),
+                 "cli": phase_chunk_cli(models["float32"])}
+        del models
+        torch.cuda.empty_cache()
+        chunk["chunk_train"] = phase_chunk_train()
+        phase_chunk_train_card_vs_cpu()
+        chunk["train_cli"] = phase_chunk_train_cli(chunk_dir)
+        torch.cuda.empty_cache()
+        socket = phase_serve_socket(cli_dir, chunk_dir)
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
               "one-stream chunk steps": chunk["stream"],
               "pool's ticks and the request check": chunk["pool"],
+              "fused and sequential decoder steps": chunk["fused"],
               "test_chunk_asr CLI call": chunk["cli"],
               "chunk train steps": chunk["chunk_train"],
               "chunk train_asr, eval_am and test_chunk_asr CLI calls":
-                  chunk["train_cli"]}
+                  chunk["train_cli"],
+              "model server's served window": socket}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)
@@ -1747,6 +2384,8 @@ def main() -> int:
         "replaced_ms": serve["replaced_ms"],
         "same_shapes": {key: k1["log_mel"][key]
                         for key in ("train", "request")},
+        # B=128 x 7 s with a given (trainable) matrix: K1 + dense_mel_kernel
+        "given_matrix": k1["log_mel"]["given_matrix"],
         "valid_shapes": {key: dict(k1_chunk["log_mel"][key],
                                    launches=chunk[key][1])
                          for key in k1_chunk["log_mel"]},

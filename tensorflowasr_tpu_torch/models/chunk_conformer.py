@@ -47,8 +47,14 @@ Training mode (``model.train()``) turns on dropout, SpecAugment (with
 ``spec_augment``) and batch-statistics BatchNorm; a ``t_valid`` width
 restricts the conv modules' BatchNorm statistics to the first ``t_valid``
 rows, as the JAX package's masked BatchNorm. Random draws come from the
-generator handed over with ``layers.set_generator``. ``fused_decoder: true``
-is not ported and raises.
+generator handed over with ``layers.set_generator``.
+
+``fused_decoder: true`` replaces the t sequential decoder micro-steps of
+``fused_stream_step`` with one helper and decoder pass over the chunk
+(``_fused_decoder_phase``): picked frames stay where they are, rings advance
+by compacting gathers (``ring_append_dyn``) and attention is banded by
+real-row index (``dyn_band_mask``), so the state and the ids are those of the
+sequential path, up to rounding. It holds for helper ``win_back`` 0 only.
 """
 
 from __future__ import annotations
@@ -138,7 +144,7 @@ class ChunkConformerConfig:
     decoder: ChunkStackConfig = ChunkStackConfig(num_blocks=1, win_back=8)
     helper: ChunkStackConfig = ChunkStackConfig(num_blocks=2)
     dtype_str: str = "float32"
-    fused_decoder: bool = False   # not ported yet
+    fused_decoder: bool = False   # one decoder pass a chunk (serving)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -250,6 +256,52 @@ def stream_band_mask(cache_len: int, t: int, win_front: int, win_back: int,
     :func:`buffer_validity`'s."""
     band = _stream_band(cache_len, t, win_front, win_back, valid.device)
     return band[None, None] & valid[:, None, None, :]
+
+
+def left_compact_idx(valid: torch.Tensor) -> torch.Tensor:
+    """[B, T] bool -> [B, T] gather indices that move the True rows to the
+    front in their order (a stable sort of an integer key: the stable sort
+    of a bool tensor is not supported on every device)."""
+    return torch.argsort((~valid).to(torch.int32), dim=1, stable=True)
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, T, d] gathered along T by idx [B, T']."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def ring_append_dyn(ring: torch.Tensor, rows: torch.Tensor,
+                    m: torch.Tensor) -> torch.Tensor:
+    """Append the first ``m`` [B] of ``rows`` [B, T, d] (left-compacted) to
+    the right-aligned ring [B, r, d] and keep its last r entries, in one
+    gather: output slot s (p = r - s from the end) is row m - p of ``rows``
+    where p <= m, else ring slot s + m. A ring of width 0 is returned
+    as it is."""
+    r = ring.shape[1]
+    if r == 0:
+        return ring
+    buf = torch.cat([ring, rows.to(ring.dtype)], dim=1)
+    s = torch.arange(r, device=ring.device)[None, :]
+    p = r - s
+    m = m.to(torch.int64)[:, None]
+    return _take_rows(buf, torch.where(p <= m, r + m - p, s + m))
+
+
+def dyn_band_mask(ring_fill: torch.Tensor, r: int, row_valid: torch.Tensor,
+                  win_front: int, win_back: int) -> torch.Tensor:
+    """Banded attention mask [B, 1, T, r + T] by real-row index for a buffer
+    [ring (r) | rows (T)] whose real rows (``row_valid``) may have holes:
+    the query with real index q sees the keys with real index in
+    [q - win_front, q + win_back]. Where the garbage forms a prefix, as on
+    the sequential path, this is the positional band."""
+    ring_valid = torch.arange(r, device=row_valid.device)[None, :] >= (
+        r - torch.clamp_max(ring_fill.to(torch.int32), r))[:, None]
+    valid = torch.cat([ring_valid, row_valid], dim=1)            # [B, r+T]
+    ri = torch.cumsum(valid.to(torch.int32), dim=1) - 1
+    q_ri = ri[:, r:, None]
+    band = (ri[:, None, :] >= q_ri - win_front) & \
+        (ri[:, None, :] <= q_ri + win_back)
+    return (band & valid[:, None, :] & row_valid[:, :, None])[:, None]
 
 
 def _batch_axis(key: str) -> int:
@@ -367,6 +419,28 @@ class ChunkMHSA(nn.Module):
         new_cache = torch.cat([kv, app], dim=1)[:, -wf:]
         return x + out, new_cache.reshape(b, wf, 2 * h * hd)
 
+    def stream_call_dyn(self, x: torch.Tensor, cache: torch.Tensor,
+                        fill: torch.Tensor, row_valid: torch.Tensor,
+                        adv_mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``stream_call`` for the fused decoder phase: the real inputs sit
+        anywhere (``row_valid`` [B, t], holes allowed), attention is banded
+        by real-row index, and the ``adv_mask`` [B, t] rows enter the ring
+        in order, so it never holds garbage (its real rows are the last
+        ``fill``). Outputs at garbage rows are garbage."""
+        b, t = x.shape[0], x.shape[1]
+        h, hd, wf = self.num_heads, self.head_size, self.win_front
+        y = self.ln(x)
+        k_new, v_new = self.mha.project_kv(y)              # [B, t, H, hd]
+        kv = cache.view(b, wf, 2, h, hd)
+        k = torch.cat([kv[:, :, 0], k_new.to(kv.dtype)], dim=1)
+        v = torch.cat([kv[:, :, 1], v_new.to(kv.dtype)], dim=1)
+        mask = dyn_band_mask(fill, wf, row_valid, wf, self.win_back)
+        out = self.mha.attend(y, k, v, mask)
+        packed = torch.stack([k_new, v_new], dim=2).reshape(b, t, 2 * h * hd)
+        rows = _take_rows(packed, left_compact_idx(adv_mask))
+        return x + out, ring_append_dyn(cache, rows, adv_mask.sum(dim=1))
+
 
 class ChunkConv(nn.Module):
     """Causal conformer conv module with a [B, kernel_size - 1, d] ring of
@@ -415,6 +489,26 @@ class ChunkConv(nn.Module):
                               dim=1)[:, -(self.kernel_size - 1):]
         return x + z, new_cache
 
+    def stream_call_dyn(self, x: torch.Tensor, cache: torch.Tensor,
+                        row_valid: torch.Tensor, adv_mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``stream_call`` for the fused decoder phase: the causal window
+        needs the real rows adjacent, so the post-GLU rows are moved to the
+        front against the ring (whose zero slots are the stream-start pad),
+        convolved, and put back where they were. The ``adv_mask`` rows enter
+        the ring."""
+        b, t = x.shape[0], x.shape[1]
+        y = glu(self.pw_conv_1(self.ln(x)))
+        y = torch.where(row_valid[..., None], y, 0.0)
+        lc = left_compact_idx(row_valid)
+        inv = torch.empty_like(lc).scatter_(
+            1, lc, torch.arange(t, device=x.device).expand(b, t))
+        buf = torch.cat([cache, _take_rows(y, lc).to(cache.dtype)], dim=1)
+        z = _take_rows(self.dw_conv(buf, pad=(0, 0)), inv)  # [B, t, d]
+        z = self.pw_conv_2(F.silu(self.bn(self.dw_pw(z))))
+        rows = _take_rows(y, left_compact_idx(adv_mask))
+        return x + z, ring_append_dyn(cache, rows, adv_mask.sum(dim=1))
+
 
 class ChunkBlock(nn.Module):
     """FF/2 -> ChunkMHSA -> ChunkConv -> FF/2 -> LN."""
@@ -452,6 +546,18 @@ class ChunkBlock(nn.Module):
         x, new_mha = self.mhsa.stream_call(x, mha_cache, mha_valid, keep)
         x, new_cnn = self.conv_module.stream_call(x, cnn_cache, cnn_valid,
                                                   keep)
+        x = self.ff_module_2(x)
+        return self.ln(x), new_mha, new_cnn
+
+    def stream_call_dyn(self, x, mha_cache, cnn_cache, fill, row_valid,
+                        adv_mask):
+        """The fused decoder phase's block step: real rows where
+        ``row_valid``, the ``adv_mask`` subset advancing into the rings."""
+        x = self.ff_module_1(x)
+        x, new_mha = self.mhsa.stream_call_dyn(x, mha_cache, fill, row_valid,
+                                               adv_mask)
+        x, new_cnn = self.conv_module.stream_call_dyn(x, cnn_cache,
+                                                      row_valid, adv_mask)
         x = self.ff_module_2(x)
         return self.ln(x), new_mha, new_cnn
 
@@ -619,6 +725,23 @@ class ChunkStack(nn.Module):
         new_fill = (fill + appended_real).to(fill.dtype)
         return out, torch.stack(new_mha), torch.stack(new_cnn), new_fill
 
+    def stream_call_dyn(self, x: torch.Tensor, mha_caches: torch.Tensor,
+                        cnn_caches: torch.Tensor, fill: torch.Tensor,
+                        row_valid: torch.Tensor, adv_mask: torch.Tensor):
+        """The fused decoder phase's stack step: real rows where
+        ``row_valid`` [B, t] (holes allowed); the ``adv_mask`` subset
+        advances into every block's rings, and ``fill`` by its count.
+        Returns (out [B, t, d], new_mha, new_cnn, new_fill)."""
+        new_mha, new_cnn = [], []
+        out = x.to(torch.float32)
+        for i, block in enumerate(self.blocks):
+            out, mha_c, cnn_c = block.stream_call_dyn(
+                out, mha_caches[i], cnn_caches[i], fill, row_valid, adv_mask)
+            new_mha.append(mha_c)
+            new_cnn.append(cnn_c)
+        new_fill = (fill + adv_mask.sum(dim=1)).to(fill.dtype)
+        return out, torch.stack(new_mha), torch.stack(new_cnn), new_fill
+
     def init_caches(self, batch: int, device):
         c = self.cfg
         kv = 2 * c.num_heads * c.head_size
@@ -651,6 +774,14 @@ class ChunkCTCDecoder(nn.Module):
         return (self.fully_connected(out.to(torch.float32)), out, new_mha,
                 new_cnn, new_fill)
 
+    def stream_call_dyn(self, x, mha_caches, cnn_caches, fill, row_valid,
+                        adv_mask):
+        out, new_mha, new_cnn, new_fill = self.stack.stream_call_dyn(
+            self.project(x), mha_caches, cnn_caches, fill, row_valid,
+            adv_mask)
+        return (self.fully_connected(out.to(torch.float32)), out, new_mha,
+                new_cnn, new_fill)
+
     def init_caches(self, batch: int, device):
         return self.stack.init_caches(batch, device)
 
@@ -678,6 +809,11 @@ class ContextHelper(nn.Module):
 
     def stream_call(self, x, mha_caches, cnn_caches, fill, skip):
         return self.stack.stream_call(x, mha_caches, cnn_caches, fill, skip)
+
+    def stream_call_dyn(self, x, mha_caches, cnn_caches, fill, row_valid,
+                        adv_mask):
+        return self.stack.stream_call_dyn(x, mha_caches, cnn_caches, fill,
+                                          row_valid, adv_mask)
 
     def init_caches(self, batch: int, device):
         return self.stack.init_caches(batch, device)
@@ -723,10 +859,6 @@ class ChunkConformer(nn.Module):
     def __init__(self, cfg: ChunkConformerConfig, num_phone_classes: int,
                  num_char_classes: int):
         super().__init__()
-        if cfg.fused_decoder:
-            raise NotImplementedError(
-                "fused_decoder: true (the vectorized decoder phase) is not "
-                "ported yet; use the sequential decoder micro-steps")
         if cfg.picker.dmodel != cfg.helper.dmodel:
             raise ValueError("the helper reads the picker's hidden rows: "
                              "their dmodel must agree")
@@ -971,6 +1103,93 @@ class ChunkConformer(nn.Module):
             new_caches["helper_ring_fill"] = new_h_ring_fill
         return logits[:, :s], logits[:, s:], n_final, new_caches
 
+    def _fused_decoder_phase(self, hidden: torch.Tensor, keep: torch.Tensor,
+                             dec: Caches):
+        """One helper and decoder pass over a chunk in place of its t
+        sequential micro-steps. The kept frames (``keep`` [B, t]) stay where
+        they are; the rings advance by compacting gathers, so a stream's
+        number of picks never puts garbage between real rows; attention is
+        banded by real-row index. The state and the ids equal the
+        sequential path's up to rounding (other matmul shapes). A row whose
+        ``keep`` is all False leaves its decoder state as it was. No value
+        is read back to the host.
+
+        Returns (char_ids [B, t] aligned to the frames, -1 where no final
+        char; prov_ids [B, max(L_d, 1)], -1 padded; new decoder caches)."""
+        c = self.cfg
+        if c.helper.lookahead:
+            raise ValueError(
+                "fused_decoder supports helper win_back == 0 only (the "
+                "shipped config); use the sequential path for helper "
+                "lookahead")
+        wb = c.decoder.lookahead
+        b, t = keep.shape
+        dev = keep.device
+        n = keep.sum(dim=1).to(torch.int32)
+
+        h_out, new_h_mha, new_h_cnn, new_h_fill = self.helper.stream_call_dyn(
+            hidden.to(torch.float32), dec["helper_mha"], dec["helper_cnn"],
+            dec["helper_fill"], keep, keep)
+
+        # the decoder runs on [ring | helper rows]: the ring's pending rows
+        # re-enter with the new ones, and the first n_adv real rows exit
+        # with their full lookahead
+        ring = dec["ring"]
+        rf = torch.clamp_max(dec["ring_fill"].to(torch.int32), wb)
+        x_d = torch.cat([ring, h_out.to(ring.dtype)], dim=1)
+        ring_valid = torch.arange(wb, device=dev)[None, :] >= (wb - rf)[:, None]
+        row_valid_d = torch.cat([ring_valid, keep], dim=1)
+        n_adv = torch.clamp_min(rf + n - wb, 0)
+        rank_d = torch.cumsum(row_valid_d.to(torch.int32), dim=1) - 1
+        adv_mask = row_valid_d & (rank_d < n_adv[:, None])
+        logits, _, new_d_mha, new_d_cnn, new_d_fill = \
+            self.decoder.stream_call_dyn(x_d, dec["dec_mha"], dec["dec_cnn"],
+                                         dec["dec_fill"], row_valid_d,
+                                         adv_mask)
+
+        lc_d = left_compact_idx(row_valid_d)              # reals in order
+        final_ids = torch.argmax(_take_rows(logits, lc_d[:, :t]),
+                                 dim=-1).to(torch.int32)
+        # the k-th emission goes to the frame whose push released it, as on
+        # the sequential path: kept rank >= wb - rf emits #(rank - wb + rf)
+        k_rank = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+        emit_idx = torch.clamp(k_rank - wb + rf[:, None], 0, t - 1)
+        emits = keep & (k_rank >= (wb - rf)[:, None])
+        char_ids = torch.where(
+            emits, torch.gather(final_ids, 1, emit_idx.to(torch.int64)), -1)
+
+        # pending ring: the last min(rf + n, wb) reals of [ring | kept rows]
+        kept_rows = _take_rows(h_out.to(ring.dtype), left_compact_idx(keep))
+        new_ring = ring_append_dyn(ring, kept_rows, n)
+        new_rf = torch.clamp_max(rf + n, wb)
+
+        # provisional: the pending reals' lookahead-truncated ids,
+        # right-aligned as on the sequential path, all -1 where nothing was
+        # kept this chunk
+        if wb > 0:
+            slot = torch.arange(wb, device=dev)[None, :]
+            pend_pos = torch.gather(
+                lc_d, 1, torch.clamp(n_adv[:, None] + slot, 0,
+                                     wb + t - 1).to(torch.int64))
+            pend_ids = torch.argmax(_take_rows(logits, pend_pos),
+                                    dim=-1).to(torch.int32)
+            src = torch.clamp(slot - (wb - new_rf)[:, None], 0, wb - 1)
+            prov_ids = torch.where(
+                (slot >= (wb - new_rf)[:, None]) & (n > 0)[:, None],
+                torch.gather(pend_ids, 1, src.to(torch.int64)), -1)
+        else:
+            prov_ids = torch.full((b, 1), -1, dtype=torch.int32, device=dev)
+
+        new_dec = {
+            "helper_mha": new_h_mha, "helper_cnn": new_h_cnn,
+            "helper_fill": new_h_fill,
+            "dec_mha": new_d_mha, "dec_cnn": new_d_cnn,
+            "dec_fill": new_d_fill,
+            "ring": new_ring,
+            "ring_fill": new_rf.to(dec["ring_fill"].dtype),
+        }
+        return char_ids, prov_ids, new_dec
+
     # -- fully fused streaming ----------------------------------------------
     def init_stream_caches(self, batch: int) -> Caches:
         caches = dict(self.init_picker_caches(batch))
@@ -983,7 +1202,8 @@ class ChunkConformer(nn.Module):
         feature pick, and a char-decoder micro-step for each of the t new
         encoder frames, whose cache update each stream keeps only where
         that frame was picked (compute and discard, so shapes never depend
-        on the picks).
+        on the picks); with ``fused_decoder``, one pass over the t frames
+        instead (``_fused_decoder_phase``).
 
         wav_chunk [B, chunk_samples] -> (phone_ids [B, t], char_ids [B, t]
         (-1 where no final char), prov_ids [B, max(L_d, 1)] (-1 padded),
@@ -1001,6 +1221,13 @@ class ChunkConformer(nn.Module):
         f_idx = torch.arange(t, device=dev)[None, :]
         keep = (phone_ids != self.phone_blank) & (
             f_idx >= (t - n_final)[:, None])
+        out_caches = dict(new_pk)
+        if self.cfg.fused_decoder:
+            char_ids, prov, new_dec = self._fused_decoder_phase(hidden, keep,
+                                                                dec)
+            for k, v in new_dec.items():
+                out_caches[f"dec_{k}"] = v
+            return phone_ids, char_ids, prov, n_final, out_caches
 
         prov = torch.full((b, max(wb, 1)), -1, dtype=torch.int32,
                           device=dev)
@@ -1019,7 +1246,6 @@ class ChunkConformer(nn.Module):
                 prov = torch.where(keep_f[:, None],
                                    torch.where(slot_valid, p, -1), prov)
             dec = select_rows(keep_f, new_dec, dec)
-        out_caches = dict(new_pk)
         for k, v in dec.items():
             out_caches[f"dec_{k}"] = v
         return (phone_ids, torch.stack(char_ids, dim=1), prov, n_final,

@@ -232,7 +232,8 @@ def log_mel_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
                       n_mels=n_mels, mel_w=weights,
                       w_smem=weights.numel() if weights.numel() <= W_SMEM_MAX
                       else 0, **db)
-    log_mel_spectrogram_cuda.launches += 1
+    with k1.LAUNCH_COUNT_LOCK:
+        log_mel_spectrogram_cuda.launches += 1
     return out
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -251,7 +252,8 @@ def launch(epi: int, wav: torch.Tensor, tables: torch.Tensor, hop: int,
             stream)
     check_rc(rc, f"frontend kernel (epilogue {epi})")
     if epi != EPI_LOG_MEL_FROM_POWER:
-        power_spectrogram_cuda.launches += 1
+        with LAUNCH_COUNT_LOCK:
+            power_spectrogram_cuda.launches += 1
 
 
 def launch_dense(power: torch.Tensor, row_max: Optional[torch.Tensor],
@@ -297,3 +299,6 @@ def power_spectrogram_cuda(wav: torch.Tensor, tables: torch.Tensor,
 
 # launches of the FFT kernel, in any epilogue (K1's own and K1b's FFT passes)
 power_spectrogram_cuda.launches = 0
+# the model server launches from several threads (its worker, the batching
+# ticker, connection threads draining a stream), so the counts take a lock
+LAUNCH_COUNT_LOCK = threading.Lock()

@@ -17,6 +17,7 @@ decoder micro-steps run on real rows.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional, Tuple
 
@@ -119,3 +120,13 @@ def chunk_models(device="cuda", seed: int = 0
     bf16 = ChunkConformer(chunk_config("bfloat16"), N_PHONE, N_CHAR)
     bf16.load_state_dict(f32.state_dict())
     return {"float32": f32, "bfloat16": bf16.to(dev).eval()}, moved
+
+
+def with_fused_decoder(model: ChunkConformer) -> ChunkConformer:
+    """A copy of ``model`` (its weights, device and mode) with
+    ``fused_decoder`` set: the decoder phase as one pass a chunk."""
+    fused = ChunkConformer(
+        dataclasses.replace(model.cfg, fused_decoder=True),
+        model.num_phone_classes, model.num_char_classes)
+    fused.load_state_dict(model.state_dict())
+    return fused.to(model.device).train(model.training)

@@ -16,13 +16,20 @@ slots:
 
 A tick is one dispatch and one fetch of a packed int32 tensor. Each slot
 gathers its ids exactly as ``ChunkStreamSession`` does, so a pool of
-interleaved streams gives each the result it would get alone. The threaded
-batching front and the socket ops are not ported yet.
+interleaved streams gives each the result it would get alone.
+
+``BatchingStreamFront`` puts the pool behind concurrent clients: each
+client's ``feed`` buffers its audio and blocks, and one ticker thread
+advances every slot with a full chunk in one tick (chunks that arrive within
+``max_wait_ms`` of each other share it) and does all of the card's work.
+``build_stream_ops`` is its op table for ``serve/model_server.py``.
 """
 
 from __future__ import annotations
 
-from typing import Union
+import threading
+import time
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -144,3 +151,159 @@ class MultiStreamChunkServer:
             if adv[i]:
                 s.pending_reset = False
                 s.add(packed[i])
+
+
+class BatchingStreamFront:
+    """Thread-safe dynamic batching over a ``MultiStreamChunkServer``.
+
+    Connection threads call ``feed`` concurrently; one ticker thread
+    coalesces the chunks that arrive within ``max_wait_ms`` of each other
+    and advances them in one tick, under its own ``torch.no_grad`` (grad
+    mode is thread-local). A caller blocks on a condition until its slot's
+    complete chunks have been consumed.
+    """
+
+    def __init__(self, server: MultiStreamChunkServer,
+                 max_wait_ms: float = 8.0, feed_deadline_s: float = 120.0):
+        self._srv = server
+        self._cv = threading.Condition()
+        self._max_wait = max_wait_ms / 1000.0
+        self._feed_deadline = feed_deadline_s
+        self._stop = False
+        self._dead: Optional[BaseException] = None    # the ticker's crash
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # -- client API (any thread) --------------------------------------------
+    def open(self) -> int:
+        with self._cv:
+            return self._srv.open()
+
+    def feed(self, slot: int, wav: np.ndarray) -> dict:
+        """Buffer audio and block until every complete chunk of the slot's
+        buffer has been processed; returns the live result.
+
+        The wait is a heartbeat: every second it re-checks, wakes the ticker
+        again (so a lost wakeup costs one beat, never a hang) and checks
+        that the ticker is alive. A ticker crash is raised here, and after
+        ``feed_deadline_s`` without progress a diagnostic of the pool's
+        state is."""
+        cs = self._srv.cfg.chunk_samples
+        s = self._srv._slots[slot]
+        with self._cv:
+            self._srv.feed(slot, wav)
+            self._cv.notify_all()                     # wake the ticker
+            deadline = time.monotonic() + self._feed_deadline
+            last_rem = len(s.wav_rem)
+            while len(s.wav_rem) >= cs:
+                self._check_ticker()
+                if len(s.wav_rem) < last_rem:
+                    # progress: the deadline bounds stalls, not the drain
+                    # time of a large feed
+                    last_rem = len(s.wav_rem)
+                    deadline = time.monotonic() + self._feed_deadline
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"feed(slot={slot}) made no progress for "
+                        f"{self._feed_deadline:.0f}s; pool state: "
+                        + self._debug_state())
+                if not self._cv.wait(timeout=1.0):
+                    self._cv.notify_all()             # heartbeat
+            return self._srv.result(slot)
+
+    def result(self, slot: int) -> dict:
+        with self._cv:
+            return self._srv.result(slot)
+
+    def close(self, slot: int) -> dict:
+        with self._cv:
+            out = self._srv.close(slot)
+            # close() ran a drain tick that may have consumed other slots'
+            # chunks: their feeders wait on the condition and must wake
+            self._cv.notify_all()
+            return out
+
+    def shutdown(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        self._thread.join(timeout=5)
+
+    def _check_ticker(self) -> None:
+        if self._dead is not None:
+            raise RuntimeError("batching ticker thread crashed") \
+                from self._dead
+        if self._stop:
+            raise RuntimeError("BatchingStreamFront is shut down")
+        if not self._thread.is_alive():
+            raise RuntimeError("batching ticker thread is not running")
+
+    def _debug_state(self) -> str:
+        cs = self._srv.cfg.chunk_samples
+        slots = [
+            f"slot{i}(active={s.active}, buffered={len(s.wav_rem)}/{cs})"
+            for i, s in enumerate(self._srv._slots)]
+        return (f"ticker_alive={self._thread.is_alive()} "
+                f"stop={self._stop} " + " ".join(slots))
+
+    # -- ticker --------------------------------------------------------------
+    def _has_full_chunk(self) -> bool:
+        cs = self._srv.cfg.chunk_samples
+        return any(s.active and len(s.wav_rem) >= cs
+                   for s in self._srv._slots)
+
+    def _loop(self) -> None:
+        try:
+            with torch.no_grad(), self._cv:
+                while True:
+                    self._cv.wait_for(
+                        lambda: self._stop or self._has_full_chunk())
+                    if self._stop:
+                        return
+                    # the coalescing window: feeds arriving now join this
+                    # tick (the lock is released while waiting)
+                    if self._max_wait > 0:
+                        self._cv.wait(timeout=self._max_wait)
+                        if self._stop:
+                            return
+                    self._srv.tick()
+                    self._cv.notify_all()
+        except BaseException as e:                    # reaches the feeders
+            with self._cv:
+                self._dead = e
+                self._cv.notify_all()
+            raise
+
+
+def build_stream_ops(front: BatchingStreamFront) -> Dict[str, Callable]:
+    """The socket op table (``serve/model_server.py``'s wire) of chunk
+    streaming. Results are ids: the client maps them to text (the C++ host
+    owns the tokener, ``cpp/serving/include/tokener.h``)."""
+
+    def _pair(out: dict):
+        return [np.asarray(out["phone_ids"], np.int32),
+                np.asarray(out["char_ids"], np.int32)]
+
+    def stream_info() -> np.ndarray:
+        """[chunk_samples, sample_rate, n_slots]: clients pace their feeds
+        from it."""
+        srv = front._srv
+        return np.asarray([srv.cfg.chunk_samples, srv.cfg.sample_rate,
+                           srv.n_slots], np.int32)
+
+    def stream_open() -> np.ndarray:
+        return np.asarray([front.open()], np.int32)
+
+    def stream_feed(slot: np.ndarray, wav: np.ndarray):
+        return _pair(front.feed(int(slot.reshape(-1)[0]),
+                                wav.reshape(-1)))
+
+    def stream_result(slot: np.ndarray):
+        return _pair(front.result(int(slot.reshape(-1)[0])))
+
+    def stream_close(slot: np.ndarray):
+        return _pair(front.close(int(slot.reshape(-1)[0])))
+
+    return {"stream_info": stream_info, "stream_open": stream_open,
+            "stream_feed": stream_feed, "stream_result": stream_result,
+            "stream_close": stream_close}

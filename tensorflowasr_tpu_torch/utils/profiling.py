@@ -29,14 +29,15 @@ def card_line() -> str:
 
 
 def trace(run: Callable[[], None], n: int, what: str, unit: str,
-          top: int) -> None:
+          top: int) -> dict:
     """Runs ``run`` (``n`` steps enqueued back to back) once as it is, then
     once under ``torch.profiler``, and prints the wall time a step of each
     run, the device time a step (the summed device time of all kernels and
     copies in the trace), the device-busy share of each run's wall time (the
     rest is the card waiting for the host), the kernels and copies a step,
     the wall time a kernel or copy, and the ``top`` kernels by device time.
-    Raises if the trace holds no device time."""
+    Returns the kernels and copies, the device ms and the wall ms (without
+    the profiler) a step. Raises if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -75,3 +76,5 @@ def trace(run: Callable[[], None], n: int, what: str, unit: str,
         ms = e.self_device_time_total / 1e3 / n
         print(f"{ms:14.3f} {100 * ms * n / device_ms:6.1f}% "
               f"{e.count / n:10.1f}  {e.key[:110]}")
+    return {"launches": launches / n, "device_ms": device_ms / n,
+            "wall_ms": bare_ms / n}

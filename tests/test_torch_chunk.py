@@ -456,14 +456,11 @@ def test_converter_refuses_missing_and_extra_keys():
 
 
 def test_unported_options_raise():
-    """``fused_decoder: true`` is not ported; training-mode SpecAugment
-    needs a generator; the stream step takes whole chunks only. (Training
-    with ``t_valid`` and SpecAugment are tested against the JAX package in
-    ``tests/test_torch_chunk_train.py``.)"""
+    """Training-mode SpecAugment needs a generator; the stream step takes
+    whole chunks only. (Training with ``t_valid`` and SpecAugment are tested
+    against the JAX package in ``tests/test_torch_chunk_train.py``;
+    ``fused_decoder: true`` in ``tests/test_torch_chunk_fused.py``.)"""
     cfg = port_cfg(tiny_cfg())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcc.ChunkConformer(dataclasses.replace(cfg, fused_decoder=True),
-                           N_PHONE, N_CHAR)
     model = tcc.ChunkConformer(dataclasses.replace(cfg, spec_augment=True),
                                N_PHONE, N_CHAR).train()
     with pytest.raises(RuntimeError, match="generator"):
