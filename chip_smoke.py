@@ -1,6 +1,7 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
-paths, its chunk-streaming ChunkConformer(S) serving and training paths and
-its socket model server on one CUDA card, and check them.
+paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
+socket model server and its VAD and punctuation serving on one CUDA card,
+and check them.
 
     python3 chip_smoke.py
 
@@ -165,12 +166,39 @@ Phases, in order; any failure raises and the script exits non-zero:
              failing client fails the phase. Prints each file's request round trip,
              ``stream_feed``'s wall a chunk (median, p90) alone and with 4
              clients, and how many chunks each tick coalesced.
+17. serve_vad_punc - phase 7's calibrated ConformerCTC(S) checkpoint
+             under the VAD state machine with punctuation: a full-width
+             OnlineVAD (``configs/vad_model.yml``) and PuncTransformer
+             (``configs/punc_settings.yml``, over the ASR's chars but every
+             7th) with seeded weights, their last layers calibrated
+             (``serve/bench_vad_punc.py``: tone bursts >= 0, gaps < 0; a
+             quarter of the positions punctuated). ``StreamASRSession`` on 8
+             s of tone bursts in 20 ms pcm16 packets then ``final_send``, and
+             ``OfflineASRSession`` with VAD and punctuation on 2 / 3.5 / 5 / 8
+             s files (each also without VAD, timed), after a warm pass; the
+             same objects copied to the CPU must give the same events, texts
+             and segments, the encoder rows within 1e-3; near-ties are
+             reported (VAD |logit|, punctuation probability against its
+             threshold, CTC and char top-two gaps); no sentence begin or end,
+             or every text empty, fails. Then ``cli.serve_model.build_ops``
+             with the VAD configs (the calibrated VAD saved as their
+             checkpoint) serves the ``vad`` op over 127.0.0.1 to one client,
+             within 1e-5 of the in-process ``VADEngine``; and the offline,
+             chunk (phase 15's checkpoint) and VAD native artifacts are
+             written twice (the same bytes) and read back through their
+             manifests, every tensor equal to the model's bit for bit.
+             Prints each packet's wall by event type (median, p90), the
+             stream's wall against its 8 s, each file's wall with and without
+             VAD, ``VADEngine.inference`` on 1 s of 8 kHz audio and one 64-
+             token ``PuncEngine`` window, and its exact K1b launches (one an
+             encode).
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
 calls, each chunk phase's timed runs (the fused phase's too), the chunk
-CLI call, each dtype's chunk train steps, the three chunk train CLI calls
-and the model server's served window, and read just after each; all must
+CLI call, each dtype's chunk train steps, the three chunk train CLI calls,
+the model server's served window and the VAD and punctuation phase's timed
+sessions and files, and read just after each; all must
 have launched both. K1b counts one launch a log-mel (the
 launch that writes it); K1 counts every launch of the FFT kernel, in any
 epilogue: two a 'same' log-mel (the max pass and the log-mel pass), one a
@@ -2287,6 +2315,497 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# VAD and punctuation serving: StreamASRSession, the VAD-segmented
+# OfflineASRSession, the served vad op, native export from port weights
+# ---------------------------------------------------------------------------
+
+VAD_FILE_SECONDS = (2.0, 3.5, 5.0, 8.0)
+PUNC_THRESHOLD = 0.65          # PuncEngine's default
+PACKET = 320                   # 20 ms of 16 kHz pcm16
+
+
+class Tap:
+    """Keeps what ``obj.name`` returns while it is installed (the method is
+    called as before)."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.seen = obj, name, []
+        fn = getattr(obj, name)
+
+        def tapped(*args):
+            out = fn(*args)
+            self.seen.append(out)
+            return out
+        setattr(obj, name, tapped)
+
+    def remove(self) -> list:
+        delattr(self.obj, self.name)
+        return self.seen
+
+
+def decode_margins(asr, encs) -> tuple:
+    """The smallest top-two gap of the CTC logits over the decoded rows and
+    of the char logits over the emitted positions, for one
+    ``ASREngine.decode`` of ``encs`` (its padding, its greedy CTC)."""
+    from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    enc = np.concatenate(encs)
+    t = len(enc)
+    cap = -(-(-(-t // asr.chunk_frames)) // asr.pad_chunks) \
+        * asr.pad_chunks * asr.chunk_frames
+    buf = np.zeros((1, cap, enc.shape[1]), np.float32)
+    buf[0, :t] = enc
+    with torch.no_grad():
+        enc_t = torch.from_numpy(buf).to(asr.device)
+        logits = asr.model.ctc_logits(enc_t)
+        ids, lens = ctc_greedy_decode(
+            logits, torch.tensor([t], dtype=torch.int32,
+                                 device=asr.device), asr.blank)
+        padded = torch.nn.functional.pad(ids, (0, 10))
+        chars = asr.model.translate(padded, enc_t)[0]
+    top = logits[0, :t].topk(2, -1).values
+    ctop = chars[:int(lens[0]) + 1].topk(2, -1).values
+    return (float((top[:, 0] - top[:, 1]).min()),
+            float((ctop[:, 0] - ctop[:, 1]).min()))
+
+
+@torch.no_grad()
+def open_char_stops(model, wav: np.ndarray, stop_ids: tuple) -> float:
+    """Lower the translator's biases of the char ids that end a decode (0
+    and ``</S>``) until neither wins a position of ``wav``'s greedy decode:
+    a few-step checkpoint stops after one char or none, and punctuation,
+    which needs 5, would never run. Returns how far they moved."""
+    from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
+
+    dev = model.ctc_decoder.fully_connected.weight.device
+    enc = model.encode(torch.from_numpy(wav[None]).to(dev))
+    logits = model.ctc_logits(enc)
+    ids, _ = ctc_greedy_decode(
+        logits, torch.tensor([enc.shape[1]], dtype=torch.int32, device=dev),
+        model.num_phone_classes - 1)
+    chars = model.translate(torch.nn.functional.pad(ids, (0, 10)), enc)[0]
+    stops = list(stop_ids)
+    rest = torch.ones(chars.shape[-1], dtype=torch.bool, device=dev)
+    rest[stops] = False
+    margin = float((chars[:, stops].amax(-1) - chars[:, rest].amax(-1))
+                   .max()) + 1.0
+    model.translator.fully_connected.bias[stops] -= max(margin, 0.0)
+    return max(margin, 0.0)
+
+
+def vad_punc_engines(cli_data: str, work: str, stream: np.ndarray,
+                     device: str) -> tuple:
+    """The serving engines of the phase on ``device``: ASREngine over the
+    cli phase's calibrated ConformerCTC(S) checkpoint; VADEngine over a
+    full-width OnlineVAD (``configs/vad_model.yml``) with seeded weights
+    whose ``fc`` layer is calibrated on ``stream`` (the ASR's stop chars
+    kept from ending its decodes early, ``open_char_stops``); PuncEngine
+    over a full-width PuncTransformer (``configs/punc_settings.yml``) on a
+    synthetic vocabulary of the ASR's chars, its class layer calibrated.
+    The VAD's calibrated weights are saved as the checkpoint of a VAD data
+    config in ``work``. Returns (engines, their models, the VAD configs,
+    calibration notes, (ASR chars, punctuation chars, punctuation
+    tokens))."""
+    import yaml
+
+    from tensorflowasr_tpu_torch.cli.common import (
+        build_featurizers,
+        build_punc_model,
+        build_vad_model,
+    )
+    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+    from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_yml = os.path.join(root, "configs", "conformerS.yml")
+    config = UserConfig(cli_data, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                         blank_id=phone_f.blank, device=device)
+    trainer.init_state()
+    if not trainer.restore():
+        raise AssertionError(f"no checkpoint under {trainer.outdir}")
+    asr_model = trainer.state.model.eval()
+    stops = open_char_stops(asr_model, stream, (0, char_f.endid()))
+
+    with open(os.path.join(root, "configs", "vad_data.yml")) as f:
+        vad_cfg = yaml.safe_load(f)
+    vad_cfg["running_config"]["outdir"] = os.path.join(work, "vad-logs")
+    vad_data = os.path.join(work, "vad_data.yml")
+    with open(vad_data, "w") as f:
+        yaml.safe_dump(vad_cfg, f)
+    vad_yml = os.path.join(root, "configs", "vad_model.yml")
+    vad_model, vad_state = build_vad_model(UserConfig(vad_data, vad_yml),
+                                           device)
+    vad_margin = bvp.calibrate_vad(vad_model, stream)
+    CheckpointManager(os.path.join(work, "vad-logs", "checkpoints")).save(
+        1, vad_state)
+
+    # every char of the ASR's vocabulary but each 7th (out of vocabulary)
+    chars = [t for t in char_f.vocab_array if t not in ("<S>", "</S>")]
+    with open(os.path.join(work, "punc_chars.txt"), "w") as f:
+        f.write("\n".join(["<S>", "</S>"] + [
+            c for i, c in enumerate(chars) if i % 7]))
+    with open(os.path.join(work, "punc_tokens.txt"), "w") as f:
+        f.write("\n".join(["<S>", "</S>", *bvp.PUNC_TOKENS]))
+    with open(os.path.join(work, "punc.list"), "w") as f:
+        f.write(f"{chars[1]}{chars[2]}{bvp.PUNC_TOKENS[1]}\n")
+    with open(os.path.join(root, "configs", "punc_settings.yml")) as f:
+        punc_cfg = yaml.safe_load(f)
+    punc_cfg["punc_vocab"]["vocabulary"] = os.path.join(work,
+                                                        "punc_chars.txt")
+    punc_cfg["punc_biaodian"]["vocabulary"] = os.path.join(
+        work, "punc_tokens.txt")
+    for key in ("train_list", "eval_list"):
+        punc_cfg["running_config"][key] = os.path.join(work, "punc.list")
+    punc_cfg["running_config"]["outdir"] = os.path.join(work, "punc-logs")
+    punc_yml = os.path.join(work, "punc_settings.yml")
+    with open(punc_yml, "w") as f:
+        yaml.safe_dump(punc_cfg, f, allow_unicode=True)
+    punc_f, dl, punc_model, _ = build_punc_model(
+        UserConfig(punc_yml, punc_yml), device)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(3, punc_f.num_classes, (16, 64))
+    ids[:, 0], ids[:, -1] = punc_f.startid(), punc_f.endid()
+    share = bvp.calibrate_punc(punc_model, ids, PUNC_THRESHOLD)
+
+    models = {"asr": asr_model, "vad": vad_model, "punc": punc_model}
+    engines = make_engines(models, char_f, punc_f, dl.punc_tokens, device)
+    notes = (f"ASR checkpoint step {trainer.state.step} ({len(chars)} "
+             f"chars; the stop chars' biases lowered by {stops:.3f}), VAD "
+             f"dmodel {vad_model.dmodel} calibrated (smallest "
+             f"|logit| off the onsets {vad_margin:.3f}), punctuation "
+             f"{punc_model.cfg.num_layers} layers x d {punc_model.cfg.d_model}"
+             f" over {punc_f.num_classes} ids, {dl.num_punc_classes} classes, "
+             f"{share:.3f} of the calibration positions insert")
+    return engines, models, (vad_data, vad_yml), notes, (
+        char_f, punc_f, dl.punc_tokens)
+
+
+def make_engines(models: dict, char_f, punc_f, punc_tokens,
+                 device: str) -> dict:
+    from tensorflowasr_tpu_torch.serve.engines import (
+        ASREngine,
+        PuncEngine,
+        VADEngine,
+    )
+
+    return {"asr": ASREngine(models["asr"], sample_rate=SR,
+                             text_featurizer=char_f),
+            "vad": VADEngine(models["vad"], device=device),
+            "punc": PuncEngine(models["punc"], punc_f, punc_tokens,
+                               threshold=PUNC_THRESHOLD, device=device)}
+
+
+def live_session(engines: dict, packets: list) -> dict:
+    """``StreamASRSession`` with VAD and punctuation over ``packets``
+    (pcm16 bytes), then ``final_send``: the events (task ids dropped), each
+    packet's wall by event type, the whole wall, and what the engines
+    returned (encoder rows, VAD logits, punctuation probabilities, the
+    decodes' encoder inputs)."""
+    from tensorflowasr_tpu_torch.serve.stream_session import (
+        StreamASRSession,
+    )
+
+    taps = {"enc": Tap(engines["asr"], "extract_feature"),
+            "vad": Tap(engines["vad"], "inference"),
+            "probs": Tap(engines["punc"], "_window_probs")}
+    decodes = []
+    decode = engines["asr"].decode
+
+    def recorded(encs):
+        decodes.append([np.array(e) for e in encs])
+        return decode(encs)
+    engines["asr"].decode = recorded
+    session = StreamASRSession(engines["asr"], engines["vad"],
+                               punc=engines["punc"], sample_rate=SR)
+    events, walls = [], []
+    t0 = time.perf_counter()
+    for pkt in packets + [None]:
+        t = time.perf_counter()
+        ev = session.send(pkt) if pkt is not None else session.final_send()
+        walls.append((ev["event_type"] if ev else "none",
+                      time.perf_counter() - t))
+        if ev:
+            ev.pop("task_id", None)
+            events.append(ev)
+    wall = time.perf_counter() - t0
+    del engines["asr"].decode
+    out = {k: tap.remove() for k, tap in taps.items()}
+    out.update(events=events, walls=walls, wall=wall, decodes=decodes)
+    return out
+
+
+def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
+                         device: str = "cuda") -> tuple:
+    """The VAD and punctuation serving path on the card: a live
+    ``StreamASRSession`` over 8 s of tone bursts in 20 ms pcm16 packets,
+    the VAD-segmented and punctuated ``OfflineASRSession`` on 2 / 3.5 / 5 /
+    8 s files, each against the same objects on the CPU; the ``vad`` op of
+    ``cli.serve_model.build_ops`` with the VAD configs over a TCP socket
+    against the in-process engine; and the native artifacts of the
+    offline, chunk and VAD models read back. Returns K1's and K1b's
+    launches in the timed session and the files on the card."""
+    import copy
+    import filecmp
+
+    from tensorflowasr_tpu_torch.cli import serve_model
+    from tensorflowasr_tpu_torch.export import native_export as nx
+    from tensorflowasr_tpu_torch.models import convert
+    from tensorflowasr_tpu_torch.ops import frontend as fe
+    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+    from tensorflowasr_tpu_torch.serve.model_server import (
+        ModelClient,
+        ModelServer,
+    )
+    from tensorflowasr_tpu_torch.serve.offline_session import (
+        OfflineASRSession,
+    )
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    t_phase = time.perf_counter()
+    work = os.path.join(cli_dir, "vad_punc")
+    os.makedirs(work)
+    stream = bvp.tone_bursts(bvp.STREAM_PATTERN, seed=1)
+    pcm = (np.clip(stream, -1, 1) * 32767).astype("<i2")
+    packets = [pcm[i:i + PACKET].tobytes()
+               for i in range(0, len(pcm), PACKET)]
+    cli_data = os.path.join(cli_dir, "data.yml")
+    engines, models, (vad_data, vad_yml), notes, vocabs = vad_punc_engines(
+        cli_data, work, stream, device)
+    log(f"serve_vad_punc: {notes}")
+
+    # the live session and the offline files, on the card (a warm pass
+    # first) and with copies of the same models on the CPU
+    files = [bvp.tone_bursts(bvp.file_pattern(s), seed=40 + i)
+             for i, s in enumerate(VAD_FILE_SECONDS)]
+    encodes = []
+    model = engines["asr"].model
+    encode = model.encode
+
+    def counting_encode(wav):
+        encodes.append(wav.shape)
+        return encode(wav)
+    model.encode = counting_encode
+    live_session(engines, packets)
+    for wav in files[:1]:
+        OfflineASRSession(engines["asr"], engines["vad"],
+                          engines["punc"]).transcribe_wav(wav)
+
+    def card():
+        del encodes[:]
+        live = live_session(engines, packets)
+        n_live = len(encodes)
+        offline, walls = [], []
+        for wav in files:
+            t0 = time.perf_counter()
+            segs = OfflineASRSession(engines["asr"], engines["vad"],
+                                     engines["punc"]).transcribe_wav(wav)
+            t1 = time.perf_counter()
+            OfflineASRSession(engines["asr"]).transcribe_wav(wav)
+            walls.append((t1 - t0, time.perf_counter() - t1))
+            offline.append(segs)
+        return live, n_live, offline, walls
+
+    (live, n_live, offline, walls), launches = counted(card)
+    del model.encode
+    # the plain file decodes (without VAD) launched too: every encode
+    expect(launches, len(encodes), f"the phase's {len(encodes)} encodes "
+           f"({n_live} in the live session)")
+    cpu_models = {k: copy.deepcopy(m).cpu() for k, m in models.items()}
+    cpu = make_engines(cpu_models, *vocabs, "cpu")
+    live_cpu = live_session(cpu, packets)
+    offline_cpu = [OfflineASRSession(cpu["asr"], cpu["vad"], cpu["punc"])
+                   .transcribe_wav(wav) for wav in files]
+
+    # near-ties: VAD logits near 0, punctuation probabilities near the
+    # threshold, CTC and char top-two gaps of every decode
+    vad_min = min(float(np.abs(x).min()) for x in live["vad"])
+    punc_min = min([float(np.abs(p[1:-1].max(-1) - PUNC_THRESHOLD).min())
+                    for p in live["probs"] if len(p) > 2] or [math.inf])
+    gaps = [decode_margins(engines["asr"], encs)
+            for encs in live["decodes"] if encs]
+    ctc_gap = min([g[0] for g in gaps] or [math.inf])
+    char_gap = min([g[1] for g in gaps] or [math.inf])
+    log(f"serve_vad_punc: near-ties on the card: smallest VAD |logit| "
+        f"{vad_min:.3e} over {sum(x.size for x in live['vad'])} frames of "
+        f"{len(live['vad'])} calls; punctuation |p - {PUNC_THRESHOLD}| "
+        f"{punc_min:.3e} over {len(live['probs'])} calls; top-two gap of "
+        f"the CTC logits {ctc_gap:.3e}, of the char logits {char_gap:.3e} "
+        f"over {len(gaps)} decodes")
+    enc_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(live["enc"], live_cpu["enc"]))
+    if len(live["enc"]) != len(live_cpu["enc"]) or enc_err > 1e-3:
+        raise AssertionError(f"encoder rows card vs CPU: {enc_err:.3e} "
+                             f"over {len(live['enc'])} / "
+                             f"{len(live_cpu['enc'])} encodes")
+    if live["events"] != live_cpu["events"]:
+        diff = [(a, b) for a, b in zip(live["events"], live_cpu["events"])
+                if a != b][:2]
+        raise AssertionError(f"the live session's events differ card vs "
+                             f"CPU ({len(live['events'])} / "
+                             f"{len(live_cpu['events'])}): {diff}")
+    types = [e["event_type"] for e in live["events"]]
+    texts = [e["best_text"] for e in live["events"]
+             if e["event_type"] in ("inter break", "sentence end")]
+    if "sentence begin" not in types or "sentence end" not in types or \
+            not any(texts):
+        raise AssertionError(f"the live session decided nothing: {types}")
+    if offline != offline_cpu:
+        raise AssertionError("the VAD-segmented files differ card vs CPU")
+    if not all(len(segs) > 1 and any(s["text"] for s in segs)
+               for segs in offline):
+        raise AssertionError(f"a file was not segmented: {offline}")
+    punctuated = sum(any(p in t for p in bvp.PUNC_TOKENS) for t in texts)
+    if not punctuated:
+        raise AssertionError(f"no text was punctuated: {texts}")
+    log("serve_vad_punc: live session events card = CPU: "
+        + ", ".join(f"{types.count(t)} {t}" for t in
+                    ("sentence begin", "result change", "inter break",
+                     "sentence end"))
+        + f"; {punctuated} of {len(texts)} texts punctuated, text lengths "
+        f"{[len(t) for t in texts]}; encoder rows within {enc_err:.3e} over "
+        f"{len(live['enc'])} encodes; the 4 files' segments "
+        f"{[len(s) for s in offline]} and texts card = CPU")
+
+    by_type = {}
+    for kind, wall in live["walls"]:
+        by_type.setdefault(kind, []).append(wall)
+    log("serve_vad_punc: live session wall a 20 ms packet (ms): " + "; ".join(
+        f"{kind} median {pct(w, 50):.3f} p90 {pct(w, 90):.3f} ({len(w)})"
+        for kind, w in sorted(by_type.items())))
+    log(f"serve_vad_punc: whole 8 s stream ({len(packets)} packets + "
+        f"final_send) {live['wall']:.3f} s of wall (RTF "
+        f"{live['wall'] / 8.0:.4f}); {n_live} encodes (K1b B=1 x 7680)")
+    for s, (with_vad, without) in zip(VAD_FILE_SECONDS, walls):
+        log(f"serve_vad_punc: {s} s file, OfflineASRSession with VAD and "
+            f"punctuation {with_vad * 1e3:.3f} ms, without (PRs 1-7) "
+            f"{without * 1e3:.3f} ms")
+
+    # the engines alone: VAD on 1 s of 8 kHz audio, one 64-token window
+    frames = bvp.vad_frames(stream)
+    second = np.ascontiguousarray(frames[:, 100:200])
+    times = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        engines["vad"].inference(second)
+        times.append(time.perf_counter() - t0)
+    window = np.zeros((1, 64), np.int32)
+    window[0, :40] = np.random.default_rng(9).integers(
+        3, vocabs[1].num_classes, 40)
+    ptimes = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        engines["punc"]._infer(window)
+        ptimes.append(time.perf_counter() - t0)
+    log(f"serve_vad_punc: VADEngine.inference on 1 s at 8 kHz (100 "
+        f"frames) median {pct(times[10:], 50):.3f} ms (min "
+        f"{min(times) * 1e3:.3f}); PuncEngine one 64-token window median "
+        f"{pct(ptimes[10:], 50):.3f} ms (min {min(ptimes) * 1e3:.3f})")
+
+    # the vad op over the socket: cli.serve_model with the VAD configs
+    model_yml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "conformerS.yml")
+    args = serve_model.parser().parse_args([
+        "--data_config", cli_data, "--model_config", model_yml,
+        "--vad_data_config", vad_data, "--vad_model_config", vad_yml,
+        "--port", "0", "--device", device, "--compute_dtype", "float32",
+        "--log_level", "WARNING"])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ops, inline_ops, _ = serve_model.build_ops(args)
+    if "checkpoint" in err.getvalue():
+        raise AssertionError(f"serve_model: {err.getvalue()[-400:]}")
+    server = ModelServer(ops, tcp_port=0, inline_exec=False,
+                         inline_ops=inline_ops)
+    served, failures = {}, []
+
+    def client():
+        cli = ModelClient(tcp_port=server.tcp_port)
+        try:
+            for name, x in (("second", second), ("stream", frames)):
+                t0 = time.perf_counter()
+                served[name] = (cli.call("vad", x)[0],
+                                time.perf_counter() - t0)
+        except BaseException as e:            # raised on the main thread
+            failures.append(e)
+        finally:
+            cli.close()
+            server.stop()
+
+    server.start()
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    server.run_worker_loop()
+    thread.join(timeout=30)
+    if failures:
+        raise failures[0]
+    worst = 0.0
+    for name, x in (("second", second), ("stream", frames)):
+        want = engines["vad"].inference(x)
+        got = served[name][0]
+        err_v = float(np.abs(got - want).max() / np.abs(want).max())
+        if got.shape != want.shape or err_v > 1e-5:
+            raise AssertionError(f"served vad {name}: {err_v:.3e}")
+        worst = max(worst, err_v)
+    log(f"serve_vad_punc: cli.serve_model --vad_data_config/"
+        f"--vad_model_config, the vad op over 127.0.0.1: {frames.shape[1]} "
+        f"frames in {served['stream'][1] * 1e3:.3f} ms, 100 in "
+        f"{served['second'][1] * 1e3:.3f} ms, within {worst:.3e} of "
+        f"VADEngine in process")
+
+    # native export from port weights: offline, chunk, VAD
+    chunk_cfg = UserConfig(os.path.join(chunk_dir, "data.yml"),
+                           os.path.join(os.path.dirname(model_yml),
+                                        "chunk_conformerS.yml"))
+    ctrainer = ChunkTrainer(chunk_cfg, engines["asr"].model.num_phone_classes,
+                            engines["asr"].model.num_char_classes,
+                            device=device)
+    ctrainer.init_state()
+    if not ctrainer.restore():
+        raise AssertionError("no chunk checkpoint")
+    artifacts = (("offline", nx.export_native, models["asr"], "same"),
+                 ("chunk", nx.export_native_chunk, ctrainer.state.model,
+                  "valid"),
+                 ("vad", nx.export_native_vad, models["vad"], None))
+    sizes = []
+    for name, export, m, padding in artifacts:
+        a, b = (os.path.join(work, f"{name}_{k}") for k in "ab")
+        t0 = time.perf_counter()
+        export(m, a)
+        took = time.perf_counter() - t0
+        export(m, b)
+        for f in ("weights.bin", "manifest.json", "manifest.txt"):
+            if not filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                               shallow=False):
+                raise AssertionError(f"{name}: {f} differs between writes")
+        tensors = nx.read_native(a)
+        want = convert.to_flax_names(m)
+        if name == "vad":
+            want = {k: v for k, v in want.items()
+                    if k.split("/")[1] in nx.VAD_LAYERS}
+        else:
+            dft, fb = fe._frontend_constants(fe.LogMelFrontendConfig(
+                sample_rate=m.cfg.sample_rate, stride_ms=m.cfg.stride_ms,
+                n_mels=m.cfg.n_mels, padding=padding))
+            want.update({"frontend/dft": dft, "frontend/freq2mel": fb})
+        if sorted(tensors) != sorted(want) or not all(
+                np.array_equal(tensors[k], v) for k, v in want.items()):
+            raise AssertionError(f"{name}: the artifact does not hold the "
+                                 f"model's weights")
+        sizes.append(f"{name} {len(tensors)} tensors, "
+                     f"{os.path.getsize(os.path.join(a, 'weights.bin'))} B "
+                     f"in {took * 1e3:.1f} ms")
+    log(f"serve_vad_punc: native artifacts written twice with the same "
+        f"bytes and read back bit for bit: {'; '.join(sizes)}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2318,6 +2837,7 @@ def main() -> int:
         chunk["train_cli"] = phase_chunk_train_cli(chunk_dir)
         torch.cuda.empty_cache()
         socket = phase_serve_socket(cli_dir, chunk_dir)
+        vad_punc = phase_serve_vad_punc(cli_dir, chunk_dir)
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
@@ -2328,7 +2848,8 @@ def main() -> int:
               "chunk train steps": chunk["chunk_train"],
               "chunk train_asr, eval_am and test_chunk_asr CLI calls":
                   chunk["train_cli"],
-              "model server's served window": socket}
+              "model server's served window": socket,
+              "VAD and punctuation sessions": vad_punc}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)

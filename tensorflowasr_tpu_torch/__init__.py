@@ -6,15 +6,22 @@ Mirrors the JAX package's layout so each counterpart is easy to find:
                  Hopper kernel on CUDA tensors), CTC loss and greedy CTC
                  decoding, SpecAugment.
 - ``kernels``  : nvcc build + ctypes loading of the CUDA sources in ``csrc``.
-- ``models``   : offline Conformer-CTC (inference and training mode) and the
-                 weight bridge to and from flax variables.
+- ``models``   : offline Conformer-CTC and the chunk-streaming
+                 ChunkConformer (inference and training mode), the VAD and
+                 punctuation models, and the weight bridge to and from flax
+                 variables.
 - ``train``    : ``CTCTrainer``, Adam with schedule / clipping / gradient
                  accumulation, full-state checkpoints, the fit loop.
-- ``data``     : the bucketing acoustic-model dataloader, waveform
-                 augmenters and the prefetcher (numpy / scipy).
+- ``data``     : the bucketing acoustic-model and chunk dataloaders, the
+                 punctuation dataloader, waveform augmenters and the
+                 prefetcher (numpy / scipy).
 - ``eval``     : ``AMTester`` (phone and char error rates).
-- ``serve``    : the greedy ASR engine and the offline session.
-- ``cli``      : ``train_asr``, ``eval_am``, ``test_asr``.
+- ``serve``    : the ASR, VAD and punctuation engines, the offline, live
+                 and chunk-streaming sessions, the slot pool and the socket
+                 model server.
+- ``export``   : native artifacts of the ``cpp/serving`` engines.
+- ``cli``      : ``train_asr``, ``eval_am``, ``test_asr``,
+                 ``test_chunk_asr``, ``serve_model``, ``test_punc``.
 - ``utils``    : YAML config, text and speech featurizers, error-rate
                  metrics, throughput meter, device choice.
 

@@ -1,10 +1,15 @@
-"""Shared CLI plumbing: argument parser, config loading, featurizers."""
+"""Shared CLI plumbing: argument parser, config loading, featurizers, and
+the VAD and punctuation models with their checkpoint restore."""
 
 from __future__ import annotations
 
 import argparse
 import logging
-from typing import Optional, Tuple
+import os
+import sys
+from typing import Optional, Tuple, Union
+
+import torch
 
 from tensorflowasr_tpu_torch.utils.config import UserConfig
 from tensorflowasr_tpu_torch.utils.text import (
@@ -122,3 +127,92 @@ def chunk_setup(args, config: UserConfig, compute_dtype: str):
                          transcripts_are_pinyin=pinyin_txt)
     trainer.init_state()
     return dl, trainer
+
+
+def _train_state(model: torch.nn.Module, config: UserConfig,
+                 device: torch.device):
+    """``model`` with seeded Keras-style weights on ``device`` inside a
+    fresh train state (Adam of ``optimizer_config``): the layout the
+    checkpoints hold."""
+    from tensorflowasr_tpu_torch.models.layers import (
+        init_weights_,
+        set_generator,
+    )
+    from tensorflowasr_tpu_torch.train.state import (
+        ASRTrainState,
+        make_optimizer,
+    )
+
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    set_generator(model, generator)
+    optimizer = make_optimizer(
+        model.parameters(), dict(config["optimizer_config"] or {}))
+    return ASRTrainState(model, optimizer, generator)
+
+
+def restore_or_warn(state, outdir: Optional[str], what: str):
+    """Restore the newest checkpoint under ``outdir``/checkpoints into
+    ``state``; warn on stderr when there is none (random init). Looking
+    creates no directory."""
+    from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
+
+    if outdir:
+        restored = CheckpointManager(
+            os.path.join(outdir, "checkpoints")).restore_latest(state)
+        if restored is not None:
+            return restored
+    print(f"warning: no {what} checkpoint found under "
+          f"{outdir or '(no outdir)'}; using random init", file=sys.stderr)
+    return state
+
+
+def build_vad_model(config: UserConfig,
+                    device: Union[str, torch.device] = "cuda"):
+    """(model, train state) from the VAD configs: ``model_config.name``
+    ``CNN_Online_VAD`` (the default) or any other name for the offline
+    variant, ``dmodel`` and ``speech_config.frame_input``. Shared by
+    ``serve_model`` and the VAD training CLIs."""
+    from tensorflowasr_tpu_torch.models.vad import OfflineVAD, OnlineVAD
+    from tensorflowasr_tpu_torch.utils.device import resolve_device
+
+    sc = config.section("speech_config")
+    mc = config.section("model_config")
+    cls = OnlineVAD if (mc["name"] or "CNN_Online_VAD") == "CNN_Online_VAD" \
+        else OfflineVAD
+    model = cls(dmodel=mc["dmodel"] or 32,
+                frame_input=sc["frame_input"] or 80)
+    state = _train_state(model, config, resolve_device(device))
+    return state.model, state
+
+
+def build_punc_model(config: UserConfig,
+                     device: Union[str, torch.device] = "cuda"):
+    """(char featurizer, punc dataloader, model, train state) from the
+    punctuation config: the ``punc_vocab`` chars, the ``punc_biaodian``
+    tokens without ``<S>`` / ``</S>``, and ``max_len =
+    min(running_config.max_len or 64, pe_input)``."""
+    from tensorflowasr_tpu_torch.data.punc_dataloader import PuncDataLoader
+    from tensorflowasr_tpu_torch.models.punc import (
+        PuncConfig,
+        PuncTransformer,
+    )
+    from tensorflowasr_tpu_torch.utils.device import resolve_device
+
+    char_f = TextFeaturizer(dict(config.section("punc_vocab").data.items()))
+    bd_vocab_path = config.section("punc_biaodian")["vocabulary"]
+    punc_tokens = []
+    if bd_vocab_path:
+        bd_f = TextFeaturizer({"vocabulary": bd_vocab_path,
+                               "blank_at_zero": True})
+        punc_tokens = [t for t in bd_f.vocab_array
+                       if t not in ("<S>", "</S>")]
+    punc_cfg = PuncConfig.from_user_config(config)
+    rc = config.section("running_config")
+    max_len = min(int(rc["max_len"] or 64), punc_cfg.pe_input)
+    dl = PuncDataLoader(config, char_f, punc_tokens, max_len=max_len)
+    model = PuncTransformer(punc_cfg, char_f.num_classes,
+                            dl.num_punc_classes)
+    state = _train_state(model, config, resolve_device(device))
+    return char_f, dl, state.model, state

@@ -5,6 +5,8 @@
         [--chunk_data_config D.yml \\
          --chunk_model_config configs/chunk_conformerS.yml \\
          --stream_slots 16 --stream_wait_ms 8] \\
+        [--vad_data_config configs/vad_data.yml \\
+         --vad_model_config configs/vad_model.yml] \\
         [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
 Counterpart of ``tensorflowasr_tpu/cli/serve_model.py``. Restores the newest
@@ -14,10 +16,13 @@ the tensor ops of ``serve/model_server.py`` (vad / encode / ctc_logits /
 translate / info) and, with the chunk configs, the multi-stream chunk ops
 (stream_info/open/feed/result/close) of a ``ChunkTrainer`` checkpoint over a
 slot pool, on a unix socket or a TCP port of 127.0.0.1, until interrupted.
+With both VAD configs the ``vad`` op is a ``VADEngine`` over the newest VAD
+checkpoint under the VAD data config's outdir (a warning and a seeded random
+init when there is none); without them it is the energy gate.
 Every op is warmed on the main thread before the server starts; then it
 prints ``model server ready on <endpoint>`` and runs the offline ops on the
 main thread. ``fused_decoder`` comes from the chunk model config.
-``--beam_width``, ``--lm`` and the VAD configs are not ported yet and raise.
+``--beam_width`` and ``--lm`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -79,15 +84,33 @@ def build_chunk_stream_ops(chunk_data_config: str, chunk_model_config: str,
     return build_stream_ops(front), front
 
 
+def build_vad_engine(vad_data_config: str, vad_model_config: str,
+                     device: str = "cuda"):
+    """A ``VADEngine`` over the newest checkpoint under the VAD data
+    config's ``running_config.outdir`` (``cli/common.py::restore_or_warn``:
+    a warning on stderr and the seeded init when there is none)."""
+    from tensorflowasr_tpu_torch.cli.common import (
+        build_vad_model,
+        restore_or_warn,
+    )
+    from tensorflowasr_tpu_torch.serve.engines import VADEngine
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    vcfg = UserConfig(vad_data_config, vad_model_config)
+    model, state = build_vad_model(vcfg, device)
+    restore_or_warn(state, vcfg.section("running_config")["outdir"], "VAD")
+    return VADEngine(model, device=device)
+
+
 def parser() -> argparse.ArgumentParser:
     p = config_parser(__doc__)
     p.add_argument("--socket", default=None,
                    help="unix socket path (default: TCP)")
     p.add_argument("--port", type=int, default=8502)
     p.add_argument("--vad_data_config", default=None,
-                   help="not ported yet")
-    p.add_argument("--vad_model_config", default=None,
-                   help="not ported yet")
+                   help="with --vad_model_config: answer the vad op with "
+                        "the VAD model restored from this config's outdir")
+    p.add_argument("--vad_model_config", default=None)
     p.add_argument("--chunk_data_config", default=None,
                    help="with --chunk_model_config: also serve multi-stream "
                         "chunk ASR (stream_open/feed/result/close ops)")
@@ -115,10 +138,6 @@ def build_ops(args) -> Tuple[Dict, set, Optional[object]]:
         raise NotImplementedError(
             "--beam_width / --lm (prefix beam search with the n-gram LM) "
             "are not ported yet")
-    if args.vad_data_config or args.vad_model_config:
-        raise NotImplementedError(
-            "--vad_data_config / --vad_model_config (a VAD model) are not "
-            "ported yet; the vad op is the energy gate")
     config = load_config(args)
     phone_f, char_f = build_featurizers(config)[:2]
     trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
@@ -131,14 +150,19 @@ def build_ops(args) -> Tuple[Dict, set, Optional[object]]:
     asr_engine = ASREngine(trainer.state.model.eval(),
                            sample_rate=trainer.sample_rate,
                            text_featurizer=char_f, phone_featurizer=phone_f)
-    ops = build_asr_ops(asr_engine)
+    vad_engine = None
+    if args.vad_data_config and args.vad_model_config:
+        vad_engine = build_vad_engine(args.vad_data_config,
+                                      args.vad_model_config, args.device)
+    ops = build_asr_ops(asr_engine, vad_engine)
 
     logger.info("warming up ops...")
     enc = ops["encode"](np.zeros((1, asr_engine.chunk_samples), np.float32))
     ops["translate"](np.zeros((1, 8), np.int32), enc)
     logger.info("encode %s, ctc_logits %s", enc.shape,
                 ops["ctc_logits"](enc).shape)
-    ops["vad"](np.zeros((1, 10, 80), np.float32))
+    vad_frame = vad_engine.frame_input if vad_engine is not None else 80
+    ops["vad"](np.zeros((1, 10, vad_frame), np.float32))
 
     inline_ops, front = set(), None
     if args.chunk_data_config and args.chunk_model_config:

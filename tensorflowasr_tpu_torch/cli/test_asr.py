@@ -2,7 +2,8 @@
 
     python -m tensorflowasr_tpu_torch.cli.test_asr --data_config D.yml \\
         --model_config M.yml --wav utt.wav [--weights W.npz] \\
-        [--device cuda|cpu] [--compute_dtype float32|bfloat16]
+        [--export_native DIR] [--device cuda|cpu] \\
+        [--compute_dtype float32|bfloat16]
 
 Without ``--weights`` the model is the trainer's (``CTCTrainer`` from the
 configs) restored from the newest checkpoint under
@@ -11,7 +12,11 @@ none there it decodes a seeded random init and says so on stderr.
 ``--weights`` takes precedence: a ``.npz`` of the flattened flax variables
 of a trained JAX ``ConformerCTC`` (keys ``params/encoder/.../kernel`` and
 ``batch_stats/...``, the names ``native_export._flatten`` writes), loaded
-through ``models/convert.py``.
+through ``models/convert.py``. ``--export_native DIR`` also writes the
+model's artifact for the standalone C++ engine (``cpp/serving``
+``asr_offline``; ``export/native_export.py``) with copies of the two
+vocabularies. ``--export_savedmodel`` (TF SavedModels) is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -48,7 +53,17 @@ def main(argv=None) -> int:
     parser.add_argument("--wav", required=True, help="wav file to decode")
     parser.add_argument("--weights", default=None, metavar="NPZ",
                         help="flattened flax variables to decode with")
+    parser.add_argument("--export_native", default=None, metavar="DIR",
+                        help="also write the raw-tensor artifact for the "
+                             "standalone C++ engine (cpp/serving "
+                             "asr_offline) to DIR")
+    parser.add_argument("--export_savedmodel", default=None, metavar="DIR",
+                        help="not ported (needs TF)")
     args = parser.parse_args(argv)
+    if args.export_savedmodel:
+        raise NotImplementedError(
+            "--export_savedmodel (TF SavedModels through jax2tf) is not "
+            "ported")
     config = load_config(args)
     device = resolve_device(args.device)
     phone_f, char_f = build_featurizers(config)[:2]
@@ -81,6 +96,16 @@ def main(argv=None) -> int:
             print("warning: no checkpoint found; decoding with random init",
                   file=sys.stderr)
         model = trainer.state.model.eval()
+
+    if args.export_native:
+        from tensorflowasr_tpu_torch.export.native_export import (
+            export_native,
+        )
+
+        export_native(model, args.export_native,
+                      phone_vocab=config.section("inp_config")["vocabulary"],
+                      char_vocab=config.section("tar_config")["vocabulary"])
+        print(f"native artifact written to {args.export_native}")
 
     wav_t = torch.from_numpy(np.asarray(padded, np.float32)[None]).to(device)
     len_t = torch.tensor([in_len], dtype=torch.int32, device=device)

@@ -3,8 +3,8 @@
 
     python -m tensorflowasr_tpu_torch.cli.test_chunk_asr \\
         --data_config D.yml --model_config configs/chunk_conformerS.yml \\
-        --wav utt.wav [--weights W.npz] [--device cuda|cpu] \\
-        [--compute_dtype float32|bfloat16]
+        --wav utt.wav [--weights W.npz] [--export_native DIR] \\
+        [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
 Without ``--weights`` the model is the trainer's (``ChunkTrainer`` from the
 configs) restored from the newest checkpoint under
@@ -14,7 +14,11 @@ none there it decodes a seeded random init and says so on stderr.
 of a trained JAX ``ChunkConformer`` (keys ``params/encoder/block_0/...`` or
 the scanned ``params/encoder/block/...``, and ``batch_stats/...``), loaded
 through ``models/convert.py``. The two decodes agree: streaming from a cold
-start equals the offline path.
+start equals the offline path. ``--export_native DIR`` also writes the
+model's artifact for the standalone C++ chunk engine (``cpp/serving``
+``asr_chunk``; ``export/native_export.py``) with copies of the two
+vocabularies. ``--export_savedmodel`` (the TF SavedModel pair) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -47,14 +51,16 @@ def main(argv=None) -> int:
     parser.add_argument("--weights", default=None, metavar="NPZ",
                         help="flattened flax variables to decode with")
     parser.add_argument("--export_native", default=None, metavar="DIR",
-                        help="not ported yet")
+                        help="also write the raw-tensor artifact for the "
+                             "standalone C++ chunk-streaming engine "
+                             "(cpp/serving asr_chunk) to DIR")
     parser.add_argument("--export_savedmodel", default=None, metavar="DIR",
-                        help="not ported yet")
+                        help="not ported (needs TF)")
     args = parser.parse_args(argv)
-    if args.export_native or args.export_savedmodel:
+    if args.export_savedmodel:
         raise NotImplementedError(
-            "--export_native / --export_savedmodel (the native chunk "
-            "engine's artifact, the TF SavedModel pair) are not ported yet")
+            "--export_savedmodel (the TF SavedModel pair through jax2tf) is "
+            "not ported")
     config = load_config(args)
     device = resolve_device(args.device)
     phone_f, char_f = build_featurizers(config)[:2]
@@ -77,6 +83,17 @@ def main(argv=None) -> int:
             print("warning: no checkpoint found; decoding with random init",
                   file=sys.stderr)
         model = trainer.state.model.eval()
+
+    if args.export_native:
+        from tensorflowasr_tpu_torch.export.native_export import (
+            export_native_chunk,
+        )
+
+        export_native_chunk(
+            model, args.export_native,
+            phone_vocab=config.section("inp_config")["vocabulary"],
+            char_vocab=config.section("tar_config")["vocabulary"])
+        print(f"native chunk artifact written to {args.export_native}")
 
     wav, _ = read_wav(args.wav, target_sr=cfg.sample_rate)
     cs = cfg.chunk_samples

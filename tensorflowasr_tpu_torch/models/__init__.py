@@ -1,1 +1,2 @@
-"""Offline Conformer-CTC modules and the flax -> torch weight bridge."""
+"""The Conformer-CTC, ChunkConformer, VAD and punctuation modules and the
+flax <-> torch weight bridge."""

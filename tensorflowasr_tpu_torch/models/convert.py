@@ -1,5 +1,5 @@
-"""Weight bridge between flax ``ConformerCTC`` / ``ChunkConformer``
-variables and the torch ``state_dict`` (both ways for ``ConformerCTC``).
+"""Weight bridge between flax ``ConformerCTC`` / ``ChunkConformer`` / VAD /
+punctuation variables and the torch ``state_dict``, both ways.
 
 The flax tree ``{"params": ..., "batch_stats": ...}`` arrives as nested
 dicts of numpy arrays (or flattened to ``params/encoder/.../kernel`` names,
@@ -17,7 +17,8 @@ Layout changes, by leaf:
 - MHA out ``kernel`` [h, hd, d]         -> ``weight`` [d, h*hd]
 - MHA bias [h, hd]                      -> [h*hd]
 - Conv ``kernel`` HWIO                  -> ``weight`` OIHW
-- depthwise ``kernel`` [K, 1, C]        -> ``weight`` [C, 1, K] (not flipped)
+- 1-D Conv ``kernel`` [K, in, out]      -> ``weight`` [out, in, K], and so
+  depthwise [K, 1, C]                   -> [C, 1, K] (neither flipped)
 - LayerNorm / BatchNorm ``scale``       -> ``weight``
 - BatchNorm stats ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
 - Embed ``embedding``                   -> ``weight``
@@ -25,10 +26,15 @@ Layout changes, by leaf:
 Every produced key must exist in the torch model and every model key must
 be produced, with matching shapes; anything else raises.
 
+The VAD and punctuation models (``models/vad.py``, ``models/punc.py``)
+name their submodules as flax does, so the same leaf rules carry them
+across: :func:`load_flax_variables` loads a flax tree into such a model,
+checked key by key, and :func:`to_flax_names` reads one back.
+
 A flax gradient tree has the layout of ``params``, so
 ``to_torch_names(flatten({"params": grads}))`` names each gradient leaf after
 the torch parameter it belongs to. :func:`to_flax_names` is the inverse map
-(a port model, either kind, back to the flattened flax layout), and
+(a port model, any kind, back to the flattened flax layout), and
 :func:`save_npz` writes it as the ``.npz`` that :func:`load_npz` and the JAX
 package read.
 """
@@ -93,7 +99,7 @@ def _convert_leaf(path: list, arr: np.ndarray):
             return "weight", arr.reshape(arr.shape[0], -1).T
         if parent == "out":                                 # [h, hd, d]
             return "weight", arr.reshape(-1, arr.shape[-1]).T
-        if arr.ndim == 3 and arr.shape[1] == 1:             # depthwise
+        if arr.ndim == 3:                                   # 1-D conv
             return "weight", arr.transpose(2, 1, 0)
         raise KeyError(f"unknown kernel layout at {'/'.join(path)} "
                        f"{arr.shape}")
@@ -207,7 +213,7 @@ def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
         return "params", "kernel", arr.T.reshape(-1, h, hd)
     if leaf == "bias":
         return "params", "bias", arr
-    if name in ("inp_embedding", "sample_helper"):
+    if name in ("inp_embedding", "sample_helper", "embedding"):
         return "params", "embedding", arr
     if arr.ndim == 1:                                       # norm scale
         return "params", "scale", arr
@@ -215,18 +221,19 @@ def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
         return "params", "kernel", arr.T
     if arr.ndim == 4:                                       # Conv OIHW
         return "params", "kernel", arr.transpose(2, 3, 1, 0)
-    if arr.ndim == 3 and arr.shape[1] == 1:                 # depthwise
+    if arr.ndim == 3:                                       # 1-D conv
         return "params", "kernel", arr.transpose(2, 1, 0)
     raise KeyError(f"unknown weight layout at {module_path}.{leaf} "
                    f"{arr.shape}")
 
 
-def to_flax_names(model: Union[ConformerCTC, ChunkConformer],
+def to_flax_names(model: torch.nn.Module,
                   scan_layers: bool = False) -> Dict[str, np.ndarray]:
-    """A torch ``ConformerCTC`` or ``ChunkConformer`` -> its flattened flax
-    variables (``params/...`` and ``batch_stats/...`` names, f32 numpy).
-    With ``scan_layers`` the blocks are stacked on axis 0, the layout a JAX
-    model built with ``scan_layers: true`` reads: under
+    """A torch ``ConformerCTC``, ``ChunkConformer``, VAD or punctuation
+    model -> its flattened flax variables (``params/...`` and
+    ``batch_stats/...`` names, f32 numpy). With ``scan_layers`` the blocks
+    are stacked on axis 0, the layout a JAX model built with
+    ``scan_layers: true`` reads: under
     ``conformer_blocks/scan/block`` for the encoder of a ``ConformerCTC``,
     under each stack's ``block`` for a ``ChunkConformer``."""
     chunk = isinstance(model, ChunkConformer)
@@ -270,6 +277,26 @@ def save_npz(model: Union[ConformerCTC, ChunkConformer], path: str,
     """Write ``model``'s weights as the ``.npz`` of flattened flax variables
     that :func:`load_npz` reads back and the JAX package can unflatten."""
     np.savez(path, **to_flax_names(model, scan_layers))
+
+
+def load_flax_variables(model: torch.nn.Module, variables: Mapping
+                        ) -> torch.nn.Module:
+    """Load ``{"params": ...}`` nested numpy dicts of the flax twin of
+    ``model`` (a VAD or punctuation model, whose torch names are the flax
+    names) into ``model``; every key and shape must match. Returns
+    ``model``."""
+    state = to_torch_names(flatten(dict(variables)))
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    if got != want:
+        bad = [(k, got[k], s) for k, s in want.items()
+               if k in got and got[k] != s]
+        raise KeyError(f"flax variables do not fit {type(model).__name__}: "
+                       f"missing {sorted(set(want) - set(got))[:8]}, unused "
+                       f"{sorted(set(got) - set(want))[:8]}, shapes (key, "
+                       f"flax, torch) {bad[:8]}")
+    model.load_state_dict(state)
+    return model
 
 
 _HEADS = {ConformerConfig: ("ctc_decoder", "translator", ConformerCTC),

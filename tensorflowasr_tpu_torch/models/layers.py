@@ -63,10 +63,11 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """f32 LayerNorm, epsilon 1e-3; promotes its input to f32."""
+    """f32 LayerNorm, epsilon 1e-3 unless ``eps`` says otherwise (the
+    punctuation model's is 1e-6); promotes its input to f32."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=NORM_EPS)
+    def __init__(self, dim: int, eps: float = NORM_EPS):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.to(torch.float32))
@@ -193,6 +194,32 @@ class DepthwiseConv1D(nn.Module):
         return y.transpose(1, 2)
 
 
+class Conv1D(nn.Module):
+    """flax ``nn.Conv`` over [B, T, C_in] -> [B, T', C_out]; weight
+    [out, in, K] (the flax kernel [K, in, out] transposed, not flipped).
+    ``padding`` = (left, right) zeros on the time axis: (K - 1, 0) is
+    flax's causal ``[(K-1, 0)]``, and with stride 1 and an odd K, TF
+    'SAME' is (d * (K - 1) // 2) on each side at dilation d."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, padding: Tuple[int, int],
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.padding = tuple(padding)
+        self.dilation = dilation
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_channels, in_channels,
+                                               kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.pad(x.to(dt).transpose(1, 2), self.padding)
+        y = F.conv1d(y, self.weight.to(dt), self.bias.to(dt),
+                     dilation=self.dilation)
+        return y.transpose(1, 2)
+
+
 class ConvSubsampling(nn.Module):
     """[B, T, F, 1] -> [B, ceil(T / reduction_factor), odim]: two 3x3 SAME
     convs with strides (rf/2, 2) and (2, 2), ReLU, then the freq x channel
@@ -246,26 +273,36 @@ class FFModule(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """flax ``MultiHeadDotProductAttention`` without mask: q/k/v
-    projections to num_heads x head_size, query scaled by 1/sqrt(head_size),
-    softmax in f32, output projection back to ``out_features``."""
+    """flax ``MultiHeadDotProductAttention``: q/k/v projections to
+    num_heads x head_size, query scaled by 1/sqrt(head_size), softmax in
+    f32, output projection back to ``out_features``. Where ``mask`` (bool,
+    broadcastable to [B, heads, Lq, Lk]) is False the logit becomes
+    ``finfo(float32).min``, not -inf, as in flax.
+
+    ``init_limits`` = (q/k/v, out) glorot limits for the seeded init; the
+    default is the Conformer's fan rule, (h * in + h * hd) and (h * hd +
+    h * out)."""
 
     def __init__(self, in_features: int, num_heads: int, head_size: int,
-                 out_features: int, dtype: torch.dtype = torch.float32):
+                 out_features: int, dtype: torch.dtype = torch.float32,
+                 init_limits: Optional[Tuple[float, float]] = None):
         super().__init__()
         self.num_heads, self.head_size = num_heads, head_size
         self.compute_dtype = dtype
         inner = num_heads * head_size
-        qkv_limit = math.sqrt(6.0 / (num_heads * in_features
-                                     + num_heads * head_size))
-        out_limit = math.sqrt(6.0 / (inner + num_heads * out_features))
+        if init_limits is None:
+            init_limits = (
+                math.sqrt(6.0 / (num_heads * in_features
+                                 + num_heads * head_size)),
+                math.sqrt(6.0 / (inner + num_heads * out_features)))
+        qkv_limit, out_limit = init_limits
         self.query = Dense(in_features, inner, dtype, qkv_limit)
         self.key = Dense(in_features, inner, dtype, qkv_limit)
         self.value = Dense(in_features, inner, dtype, qkv_limit)
         self.out = Dense(inner, out_features, dtype, out_limit)
 
-    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, lq, _ = inputs_q.shape
         lk = inputs_kv.shape[1]
         h, hd = self.num_heads, self.head_size
@@ -273,7 +310,10 @@ class MultiHeadAttention(nn.Module):
         k = self.key(inputs_kv).view(b, lk, h, hd).transpose(1, 2)
         v = self.value(inputs_kv).view(b, lk, h, hd).transpose(1, 2)
         logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
-        w = torch.softmax(logits.to(torch.float32), dim=-1)
+        logits = logits.to(torch.float32)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        w = torch.softmax(logits, dim=-1)
         o = torch.matmul(w.to(self.compute_dtype), v)       # [b, h, lq, hd]
         return self.out(o.transpose(1, 2).reshape(b, lq, h * hd))
 
@@ -423,6 +463,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, DepthwiseConv1D):
             c, _, k = m.weight.shape
             _glorot_(m.weight, k * c, k, generator)
+            m.bias.zero_()
+        elif isinstance(m, Conv1D):
+            c_out, c_in, k = m.weight.shape
+            _glorot_(m.weight, k * c_in, k * c_out, generator)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             nn.init.uniform_(m.weight, -0.05, 0.05, generator=generator)

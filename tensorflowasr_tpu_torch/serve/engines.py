@@ -1,21 +1,24 @@
 """Inference engines for serving (greedy decode).
 
-Counterpart of ``tensorflowasr_tpu/serve/engines.py::ASREngine`` and of the
-predict step in ``tensorflowasr_tpu/train/asr_trainer.py``. Chunk and
-utterance lengths are padded to the same small set of shapes as in the JAX
-package, so both produce the same ids from the same weights. The beam and
-n-gram LM decoders are not ported yet and raise.
+Counterpart of ``tensorflowasr_tpu/serve/engines.py`` (``ASREngine``,
+``VADEngine``, ``PuncEngine``) and of the predict step in
+``tensorflowasr_tpu/train/asr_trainer.py``. Chunk and utterance lengths are
+padded to the same small set of shapes as in the JAX package, so both
+produce the same ids from the same weights. Every engine runs under
+``torch.no_grad`` and returns numpy. The beam and n-gram LM decoders are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tensorflowasr_tpu_torch.models.conformer import ConformerCTC
 from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
+from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 TRANSLATOR_PAD = 10     # zero phones appended before the translator
 
@@ -124,3 +127,101 @@ class ASREngine:
         if self.phone_featurizer is not None:
             return self.phone_featurizer.iextract(seq)
         return [str(s) for s in seq]
+
+
+class VADEngine:
+    """VAD logits over framed waveform windows (vad/src/vad.py). The model
+    moves to ``device`` in eval mode; its ``frame_input`` is the
+    engine's."""
+
+    def __init__(self, model: torch.nn.Module,
+                 device: Union[str, torch.device] = "cuda"):
+        self.frame_input = model.frame_input
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+
+    @torch.no_grad()
+    def inference(self, frames: np.ndarray) -> np.ndarray:
+        """[1, n_frames, frame_input] -> [n_frames] logits."""
+        x = torch.tensor(np.asarray(frames, np.float32), device=self.device)
+        return self.model(x)[0].cpu().numpy().flatten()
+
+
+class PuncEngine:
+    """Punctuation recovery (punc_recover.py:46-62): insert the punctuation
+    token after char i when the argmax class is >= 2 with probability >=
+    ``threshold``. The model moves to ``device`` in eval mode."""
+
+    def __init__(self, model: torch.nn.Module, char_featurizer,
+                 punc_tokens: Sequence[str], threshold: float = 0.65,
+                 max_len: int = 64,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.char_featurizer = char_featurizer
+        self.punc_tokens = list(punc_tokens)
+        self.threshold = threshold
+        # the PE table bounds the usable sequence length
+        pe_cap = getattr(getattr(model, "cfg", None), "pe_input", max_len)
+        self.max_len = min(max_len, pe_cap)
+
+    @torch.no_grad()
+    def _infer(self, ids: np.ndarray) -> np.ndarray:
+        """[1, max_len] ids -> [max_len, C] logits."""
+        x = torch.tensor(ids, dtype=torch.int32, device=self.device)
+        return self.model(x)[0][0].cpu().numpy()
+
+    def _window_probs(self, ids: np.ndarray) -> np.ndarray:
+        """[L] ids -> [L, C] probs. Inputs longer than ``max_len`` run
+        through half-overlapping windows of ``max_len`` whose probabilities
+        are blended with a triangular vote (a position trusts the window
+        it is nearest the centre of)."""
+        t = self.max_len
+        length = len(ids)
+        starts = [0]
+        if length > t:
+            stride = max(t // 2, 1)
+            starts = list(range(0, length - t, stride)) + [length - t]
+        prob_sum = np.zeros((length, 0), np.float32)
+        weight_sum = np.zeros((length,), np.float32)
+        for s in starts:
+            buf = np.zeros((1, t), np.int32)
+            n = min(length - s, t)
+            buf[0, :n] = ids[s:s + n]
+            logits = self._infer(buf)
+            probs = np.exp(logits - logits.max(-1, keepdims=True))
+            probs /= probs.sum(-1, keepdims=True)
+            if prob_sum.shape[1] == 0:
+                prob_sum = np.zeros((length, probs.shape[-1]), np.float32)
+            w = np.minimum(np.arange(1, n + 1),
+                           np.arange(n, 0, -1)).astype(np.float32)
+            prob_sum[s:s + n] += probs[:n] * w[:, None]
+            weight_sum[s:s + n] += w
+        return prob_sum / np.maximum(weight_sum[:, None], 1e-6)
+
+    def punc_recover(self, chars: Sequence[str]) -> List[str]:
+        """Every input char comes out; chars outside the vocabulary (digits,
+        latin, rare hanzi) do not feed the model and get no punctuation
+        after them."""
+        f = self.char_featurizer
+        known = [c for c in chars if f.has(c)]
+        if not known:
+            return list(chars)
+        ids = np.asarray([f.startid()] + f.extract(known) + [f.endid()],
+                         np.int32)
+        probs = self._window_probs(ids)
+        out: List[str] = []
+        pos = 0                         # model position of the next known
+        for ch in chars:                # char
+            out.append(ch)
+            if not f.has(ch):
+                continue
+            pos += 1
+            if pos >= len(ids):
+                continue
+            best = int(np.argmax(probs[pos]))
+            if best >= 2 and probs[pos, best] >= self.threshold:
+                idx = best - 2
+                if idx < len(self.punc_tokens):
+                    out.append(self.punc_tokens[idx])
+        return out

@@ -205,14 +205,11 @@ class ModelServer:
 def build_asr_ops(asr_engine, vad_engine=None) -> Dict[str, Callable]:
     """The op table over ``serve/engines.py::ASREngine``. Each op runs under
     ``torch.no_grad`` on whatever thread executes it (grad mode is
-    thread-local). ``vad`` is the energy gate of
-    ``serve/vad_machine.py::SilenceDetector``: VAD models are not ported yet,
-    and a ``vad_engine`` raises."""
+    thread-local). ``vad`` is ``vad_engine.inference`` (a
+    ``serve/engines.py::VADEngine``) or, without one, the energy gate of
+    ``serve/vad_machine.py::SilenceDetector``."""
     from tensorflowasr_tpu_torch.serve.vad_machine import SilenceDetector
 
-    if vad_engine is not None:
-        raise NotImplementedError(
-            "a VAD engine is not ported yet; the vad op is the energy gate")
     model = asr_engine.model
     dev = asr_engine.device
 
@@ -241,6 +238,11 @@ def build_asr_ops(asr_engine, vad_engine=None) -> Dict[str, Callable]:
         return np.asarray([asr_engine.chunk_samples, asr_engine.sample_rate,
                            model.cfg.dmodel], np.int32)
 
+    ops = {"encode": encode, "ctc_logits": ctc_logits,
+           "translate": translate, "info": info}
+    if vad_engine is not None:
+        ops["vad"] = vad_engine.inference
+        return ops
     sd = SilenceDetector()
 
     def energy_vad(frames: np.ndarray) -> np.ndarray:
@@ -250,8 +252,8 @@ def build_asr_ops(asr_engine, vad_engine=None) -> Dict[str, Callable]:
         spl = np.asarray([sd.sound_pressure_level(row) for row in f])
         return (spl - sd.threshold).astype(np.float32)
 
-    return {"encode": encode, "ctc_logits": ctc_logits,
-            "translate": translate, "info": info, "vad": energy_vad}
+    ops["vad"] = energy_vad
+    return ops
 
 
 class ModelClient:

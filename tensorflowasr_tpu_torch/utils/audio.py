@@ -1,9 +1,10 @@
 """Host-side waveform IO and padding (numpy + scipy only).
 
-Counterpart of ``read_wav`` / ``write_wav`` / ``resample`` and
-``SpeechFeaturizer.load_wav`` / ``pad_signal`` in
+Counterpart of ``read_wav`` / ``read_pcm16`` / ``write_wav`` /
+``resample`` and ``SpeechFeaturizer.load_wav`` / ``pad_signal`` in
 ``tensorflowasr_tpu.utils.audio``: load a wav at a target sample rate
-(resampling if needed), convert to float32 in [-1, 1], write PCM16, and pad
+(resampling if needed), convert it or raw PCM16 bytes to float32 in
+[-1, 1], write PCM16, and pad
 signals so the frame math of the frontend works out.
 """
 
@@ -53,6 +54,11 @@ def read_wav(path_or_bytes, target_sr: Optional[int] = None,
         data = resample(data, sr, target_sr)
         sr = target_sr
     return np.ascontiguousarray(data, dtype=np.float32), sr
+
+
+def read_pcm16(raw: bytes) -> np.ndarray:
+    """Raw little-endian PCM16 bytes -> float32 waveform in [-1, 1]."""
+    return (np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0)
 
 
 def write_wav(path: str, wav: np.ndarray, sr: int) -> None:

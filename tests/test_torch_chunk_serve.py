@@ -259,8 +259,24 @@ def test_cli_test_chunk_asr_matches_jax(pair, cli_configs, capsys):
     captured = capsys.readouterr()
     assert "random init" in captured.err and "stream  phones:" in \
         captured.out
+    # --export_native writes JAX's artifact from the same weights, byte for
+    # byte (tests/test_torch_native_export.py holds the exporter itself);
+    # --export_savedmodel (TF) stays refused
+    from tensorflowasr_tpu.export.native_export import export_native_chunk
+
+    path = tmp_path / "unrolled.npz"
+    assert main(args + ["--weights", str(path), "--export_native",
+                        str(tmp_path / "native")]) == 0
+    assert "native chunk artifact written" in capsys.readouterr().out
+    export_native_chunk(jmodel, variables, str(tmp_path / "jax_native"),
+                        phone_vocab=str(tmp_path / "phones.txt"),
+                        char_vocab=str(tmp_path / "chars.txt"))
+    for name in ("weights.bin", "manifest.json", "manifest.txt",
+                 "phones.txt", "chars.txt"):
+        assert (tmp_path / "native" / name).read_bytes() == \
+            (tmp_path / "jax_native" / name).read_bytes(), name
     with pytest.raises(NotImplementedError, match="not ported"):
-        main(args + ["--export_native", str(tmp_path / "native")])
+        main(args + ["--export_savedmodel", str(tmp_path / "sm")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(args[:-4])

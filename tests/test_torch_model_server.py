@@ -30,13 +30,16 @@ import yaml
 from tests.test_chunk import N_CHAR, N_PHONE, tiny_cfg
 from tests.test_torch_chunk import SR, build_pair, close, speech
 from tensorflowasr_tpu.models import conformer as jconf
+from tensorflowasr_tpu.models import vad as jvad
 from tensorflowasr_tpu.serve import model_server as jms
 from tensorflowasr_tpu.serve.engines import ASREngine as JASREngine
+from tensorflowasr_tpu.serve.engines import VADEngine as JVADEngine
 from tensorflowasr_tpu_torch.models import conformer as tconf
 from tensorflowasr_tpu_torch.models import convert
+from tensorflowasr_tpu_torch.models import vad as tvad
 from tensorflowasr_tpu_torch.serve import model_server as tms
 from tensorflowasr_tpu_torch.serve.chunk_session import ChunkStreamSession
-from tensorflowasr_tpu_torch.serve.engines import ASREngine
+from tensorflowasr_tpu_torch.serve.engines import ASREngine, VADEngine
 from tensorflowasr_tpu_torch.serve.multi_session import (
     BatchingStreamFront,
     MultiStreamChunkServer,
@@ -212,8 +215,20 @@ def test_build_asr_ops_match_jax():
     np.testing.assert_array_equal(ops["vad"](frames), jops["vad"](frames))
     assert (ops["vad"](frames)[:3] < 0).all() and \
         (ops["vad"](frames)[3:] > 0).any()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tms.build_asr_ops(ASREngine(tmodel), vad_engine=object())
+    # with a VAD engine (ported), the vad op is that engine's, as JAX's
+    jvad_model = jvad.OnlineVAD(dmodel=8)
+    vad_vars = jvad_model.init(jax.random.PRNGKey(1),
+                               jnp.zeros((1, 4, 80), jnp.float32))
+    tvad_model = convert.load_flax_variables(tvad.OnlineVAD(dmodel=8),
+                                             vad_vars)
+    ops = tms.build_asr_ops(ASREngine(tmodel),
+                            vad_engine=VADEngine(tvad_model, device="cpu"))
+    jops = jms.build_asr_ops(JASREngine(jmodel, variables),
+                             JVADEngine(jvad_model, vad_vars))
+    want = np.asarray(jops["vad"](frames))
+    np.testing.assert_allclose(ops["vad"](frames), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert len(np.unique(np.round(want, 4))) > 3
 
 
 # ---------------------------------------------------------------------------
@@ -565,11 +580,14 @@ def test_serve_model_refuses_unported_options(tmp_path):
 
     base = ["--data_config", "unused.yml", "--model_config", "unused.yml",
             "--device", "cpu"]
-    for extra in (["--beam_width", "4"], ["--lm", "lm.npz"],
-                  ["--vad_data_config", "v.yml", "--vad_model_config",
-                   "vm.yml"]):
+    for extra in (["--beam_width", "4"], ["--lm", "lm.npz"]):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             main(base + extra)
+    # the VAD configs are ported (tests/test_torch_stream_session.py serves
+    # with them): no refusal, the missing config file is what fails
+    with pytest.raises(FileNotFoundError, match="unused.yml"):
+        main(base + ["--vad_data_config", "v.yml", "--vad_model_config",
+                     "vm.yml"])
 
 
 def test_serve_model_cuda_without_cuda_raises(tmp_path):

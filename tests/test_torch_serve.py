@@ -175,14 +175,34 @@ def test_engine_and_offline_session_match_jax():
 
 
 def test_unported_serving_options_raise():
+    """The beam decoder still raises; a VAD and a punctuation engine are
+    ported (tests/test_torch_stream_session.py holds them to JAX's), so
+    the session takes both: VAD segments, punctuation on each text."""
     _, _, tmodel = pair(11, 17)
     with pytest.raises(NotImplementedError, match="not ported"):
         ASREngine(tmodel, beam_width=4)
-    eng = ASREngine(tmodel)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OfflineASRSession(eng, vad=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OfflineASRSession(eng, punc=object())
+    eng = ASREngine(tmodel, text_featurizer=Vocab(17))
+
+    class EnergyVAD:
+        frame_input = 80
+
+        def inference(self, frames):
+            e = np.abs(frames).mean(axis=-1).flatten()
+            return np.where(e > 0.01, 1.0, -1.0)
+
+    class Stop:
+        def punc_recover(self, chars):
+            return list(chars) + ["."]
+
+    wav = np.concatenate([np.zeros(SR // 2, np.float32), speech(1.0, seed=4),
+                          np.zeros(SR // 2, np.float32),
+                          speech(1.0, seed=5)])
+    segs = OfflineASRSession(eng, vad=EnergyVAD(),
+                             punc=Stop()).transcribe_wav(wav)
+    assert len(segs) >= 2 and segs[0]["start_s"] >= 0.45
+    assert all(s["text"].endswith(".") for s in segs
+               if len(s["text"]) >= 5 * 2)
+    assert OfflineASRSession(eng).transcribe_wav(wav)[0]["start_s"] == 0.0
 
 
 @pytest.fixture()
