@@ -1,7 +1,7 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
 paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
-socket model server and its VAD and punctuation serving on one CUDA card,
-and check them.
+socket model server, its VAD and punctuation serving and training and its
+block-streaming ConformerCTC on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -18,8 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              them: 'same' at B=128 x 7 s (serve), the one-chunk request
              shape (B=1 x 7680 samples), the train batch (B=128 x 8 s), the
              cli phase's buckets (B=8 x 2 s and 4 s) and the card-against-
-             CPU batch (B=2 x 1 s); and 'valid' at B=16 x 7680 samples and
-             a ragged T, so that both of K1's slab-copy paths are taken;
+             CPU batch (B=2 x 1 s), the block-streaming fold (B=1920 x
+             7680: 128 x 7.2 s in chunks); and 'valid' at B=16 x 7680
+             samples and a ragged T, so that both of K1's slab-copy paths
+             are taken;
              power within rtol 2e-4 / atol 2e-3, log-mel within rtol 1e-3 /
              atol 5e-2; K1b's backward (a given mel matrix) against the
              plain version's autograd at the cli buckets, within 1e-4 of the
@@ -32,7 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
              path K1b replaced, at the serve shape), the plain version and
              ``torch.stft`` + the same dB and mel, with its bound counted
              both ways (the mel product dense, and banded as the kernel
-             does it). Then K1b with a given (trainable) [513, 80]
+             does it); K1b also at the block-streaming fold. Then K1b with
+             a given (trainable) [513, 80]
              matrix (K1 + ``dense_mel_kernel``) at B=128 x 7 s, 'same' and
              'valid', beside its plain version and ``torch.stft`` + the
              same dB + ``torch.matmul`` by that matrix.
@@ -192,13 +195,40 @@ Phases, in order; any failure raises and the script exits non-zero:
              VAD, ``VADEngine.inference`` on 1 s of 8 kHz audio and one 64-
              token ``PuncEngine`` window, and its exact K1b launches (one an
              encode).
+18. vad_punc_train - VAD and punctuation training at the shipped widths:
+             OnlineVAD (``configs/vad_model.yml``) f32 train steps at
+             ``configs/vad_data.yml``'s B=16 x 6 s at 8 kHz from
+             ``VADDataLoader`` on a seeded corpus, one step folded by
+             ``streaming_reshape``, one OfflineVAD step; PuncTransformer
+             (``configs/punc_settings.yml``) at B=32 x 64 tokens with and
+             without 768-d teacher features; each traced once
+             (``utils/profiling.py::trace``), each model's loss and gradient
+             norm on the card against the CPU (1e-4 / 1e-3 relative); then
+             ``cli.train_vad`` -> ``cli.eval_vad --export_native`` and
+             ``cli.train_punc --bert_feature_dir`` -> ``cli.eval_punc``,
+             each eval restoring. K1 and K1b must not launch on this path.
+19. block_stream - ConformerCTC with ``streaming: true`` (a temporary copy
+             of ``configs/am_data.yml``) and
+             ``configs/Streaming_ConformerS.yml`` at full width, seeded: ``predict_step`` f32 at B=128 x 7.2 s
+             (K1b 'same' on the fold [1920, 7680]) with its stage split; f32
+             train steps at B=128 x 8.16 s (the loader's 8 s bucket in whole
+             chunks) with their split and a trace; the encoder, loss and
+             gradient norm on the card against the CPU on B=2 x 2 chunks;
+             ``cli.train_asr`` -> ``cli.eval_am`` -> ``cli.test_asr`` on
+             phase 7's kind of corpus (a 16-chunk wav: the JAX test_asr
+             raises on a wav that is not whole chunks, and the port keeps
+             that); ``OfflineASRSession`` on 2 / 3.5 / 5 / 8 s files, its
+             per-chunk encoder rows within 1e-3 of the folded encode.
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
 calls, each chunk phase's timed runs (the fused phase's too), the chunk
 CLI call, each dtype's chunk train steps, the three chunk train CLI calls,
-the model server's served window and the VAD and punctuation phase's timed
-sessions and files, and read just after each; all must
+the model server's served window, the VAD and punctuation phase's timed
+sessions and files, the VAD and punctuation training phase (which must
+launch neither) and the block-streaming phase's predict, train, CLI and
+session calls, and read just after each; all but the training of VAD and
+punctuation must
 have launched both. K1b counts one launch a log-mel (the
 launch that writes it); K1 counts every launch of the FFT kernel, in any
 epilogue: two a 'same' log-mel (the max pass and the log-mel pass), one a
@@ -260,6 +290,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 REQUEST_SAMPLES = 7680               # ASREngine's 0.48 s chunk at B = 1
+# the block-streaming encoder folds B = 128 x 7.2 s (15 chunks of 7680
+# samples) into [1920, 7680] before K1b 'same'
+BLOCK_B, BLOCK_CHUNKS = 128, 15
+BLOCK_FOLD = (BLOCK_B * BLOCK_CHUNKS, REQUEST_SAMPLES)
 CLI_B, CLI_BUCKET_SECONDS = 8, (2.0, 4.0)    # the cli phase's batches
 POWER_TOL = dict(rtol=2e-4, atol=2e-3)
 # torch.stft's log-mel against the plain version's (the Pallas kernel's
@@ -269,6 +303,9 @@ LOGMEL_TOL = dict(rtol=1e-3, atol=5e-2)
 # it: 8.0e-5 seen at most, where a bulk 'valid' log-mel of this noise is
 # about 0.02
 KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
+
+
+CARD = "not read yet"    # nvidia-smi's "name, power limit", from phase_device
 
 
 def log(*parts) -> None:
@@ -311,7 +348,9 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    log(smi.splitlines()[0])
+    global CARD
+    CARD = smi.splitlines()[0]
+    log(CARD)
     return name
 
 
@@ -536,7 +575,7 @@ def phase_kernel() -> dict:
               ("same", 3, 2 * SR + 77), ("same", 1, REQUEST_SAMPLES),
               ("same", TRAIN_B, TRAIN_SECONDS * SR),
               *(("same", CLI_B, int(s * SR)) for s in CLI_BUCKET_SECONDS),
-              ("same", 2, SR))
+              ("same", 2, SR), ("same", *BLOCK_FOLD))
     result, copies = {"max_abs_err": 0.0, "log_mel_max_abs_err": 0.0}, set()
     for padding, b, t in shapes:
         err, vec16, mel_err = hold_k1(padding, b, t)
@@ -573,6 +612,11 @@ def phase_kernel() -> dict:
                         log_mel=True)
     log_k1b("kernel", f"same B={TRAIN_B} T={TRAIN_SECONDS * SR} (train)",
             k1b_train)
+    # the block-streaming predict_step's fold: 59 MB in, 31 MB out
+    k1b_block = time_k1("same", *BLOCK_FOLD, reps=50, log_mel=True)
+    log_k1b("kernel", f"same B={BLOCK_FOLD[0]} T={BLOCK_FOLD[1]} (block "
+            f"streaming: B={BLOCK_B} x {BLOCK_CHUNKS} chunks folded) "
+            f"[{CARD}]", k1b_block)
     k1b_request = time_k1("same", 1, REQUEST_SAMPLES, reps=50, graph=True,
                           log_mel=True)
     log_k1b("kernel", f"same B=1 T={REQUEST_SAMPLES} (request, L2-warm)",
@@ -623,7 +667,8 @@ def phase_kernel() -> dict:
         "given_matrix": given,
         "serve": k1_numbers(128, 7 * SR, k1b),
         "train": k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, k1b_train),
-        "request": k1_numbers(1, REQUEST_SAMPLES, k1b_request)}
+        "request": k1_numbers(1, REQUEST_SAMPLES, k1b_request),
+        "block_stream": k1_numbers(*BLOCK_FOLD, k1b_block)}
     result["request_shape"] = k1_numbers(1, REQUEST_SAMPLES, request)
     log(json.dumps({"k1_request_shape": result["request_shape"]}))
     log(json.dumps({"k1_train_shape": result["train_shape"]}))
@@ -691,16 +736,19 @@ def stage_breakdown(model, wav, length) -> dict:
         ev.record()
         marks.append((name, ev))
 
+    c = model.cfg
     with torch.no_grad():
         mark("start")
-        mel = enc_mod.mel_layer(wav)
+        # the block-streaming encoder folds the chunks into the batch first
+        mel = enc_mod.mel_layer(wav.reshape(-1, c.chunk_samples)
+                                if c.streaming else wav)
         mark("frontend (K1b: FFT, dB and banded mel in one kernel)")
         x = enc_mod.conv_subsampling(mel[..., None])
         mark("conv subsampling")
         for block in enc_mod.blocks:
             x = block(x)
-        enc = x.float()
-        mark("13 conformer blocks")
+        enc = x.float().reshape(wav.shape[0], -1, c.dmodel)
+        mark(f"{len(enc_mod.blocks)} conformer blocks")
         ids, _ = ctc_greedy_decode(model.ctc_logits(enc), length,
                                    model.num_phone_classes - 1)
         mark("CTC head + greedy")
@@ -2806,6 +2854,601 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# VAD and punctuation training: OnlineVAD / OfflineVAD and PuncTransformer
+# ---------------------------------------------------------------------------
+
+VAD_SR, VAD_B, VAD_SECONDS = 8000, 16, 6       # configs/vad_data.yml
+PUNC_B, PUNC_LEN, PUNC_VOCAB = 32, 64, 5000     # configs/punc_settings.yml
+PUNC_MARKS = ("，", "。", "？", "！", "、")
+
+
+def write_vad_corpus(root: str, n_utts: int = 24) -> str:
+    """Seeded 8 kHz utterances (tone bursts between quiet stretches, 1-3
+    s) and their list; returns the list's path."""
+    from tensorflowasr_tpu_torch.utils.audio import write_wav
+
+    rng = np.random.default_rng(3)
+    paths = []
+    for i in range(n_utts):
+        parts = []
+        for _ in range(int(rng.integers(2, 5))):
+            quiet = 0.003 * rng.standard_normal(
+                int(rng.uniform(0.1, 0.4) * VAD_SR))
+            t = np.arange(int(rng.uniform(0.2, 0.7) * VAD_SR)) / VAD_SR
+            tone = rng.uniform(0.2, 0.8) * np.sin(
+                2 * np.pi * rng.uniform(120, 1500) * t)
+            parts += [quiet, tone + 0.003 * rng.standard_normal(len(t))]
+        path = os.path.join(root, f"vad{i:03d}.wav")
+        write_wav(path, np.concatenate(parts).astype(np.float32), VAD_SR)
+        paths.append(path)
+    lst = os.path.join(root, "vad.list")
+    with open(lst, "w", encoding="utf-8") as f:
+        f.write("\n".join(paths))
+    return lst
+
+
+def write_punc_corpus(root: str, n_lines: int = 200) -> tuple:
+    """A seeded corpus of punctuated lines over a 5000-char vocabulary (the
+    reference's is 5038), with 768-d teacher features, one ``.npy`` a line
+    under the loader's name. Returns (chars path, tokens path, list path,
+    features dir)."""
+    import hashlib
+
+    rng = np.random.default_rng(4)
+    chars = [chr(0x4E00 + i) for i in range(PUNC_VOCAB)]
+    feats = os.path.join(root, "bert")
+    os.makedirs(feats)
+    lines = []
+    for _ in range(n_lines):
+        n = int(rng.integers(20, 90))
+        text = ""
+        for j in range(n):
+            text += chars[int(rng.integers(0, PUNC_VOCAB))]
+            if rng.random() < 0.12 or j == n - 1:
+                text += PUNC_MARKS[int(rng.integers(0, len(PUNC_MARKS)))]
+        lines.append(text)
+        name = hashlib.sha1(text.encode("utf-8")).hexdigest()[:16]
+        np.save(os.path.join(feats, f"{name}.npy"),
+                rng.standard_normal((n + 2, 768)).astype(np.float32))
+    out = []
+    for name, body in (("punc_chars.txt", ["<S>", "</S>"] + chars),
+                       ("punc_tokens.txt", ["<S>", "</S>", *PUNC_MARKS]),
+                       ("punc.list", lines)):
+        out.append(os.path.join(root, name))
+        with open(out[-1], "w", encoding="utf-8") as f:
+            f.write("\n".join(body) + "\n")
+    return (*out, feats)
+
+
+def vad_punc_configs(root: str) -> dict:
+    """The shipped VAD and punctuation YAMLs pointed at the corpora written
+    to ``root`` (batch sizes, widths and optimizers as shipped; the VAD
+    trains without evaluating). Returns their paths and the teacher
+    features' dir."""
+    import yaml
+
+    conf = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs")
+    lst = write_vad_corpus(root)
+    with open(os.path.join(conf, "vad_data.yml")) as f:
+        vad = yaml.safe_load(f)
+    vad["running_config"].update(
+        train_list=lst, eval_list=lst, log_interval_steps=2,
+        eval_interval_steps=1000, outdir=os.path.join(root, "vad-logs"))
+    chars, tokens, punc_list, feats = write_punc_corpus(root)
+    with open(os.path.join(conf, "punc_settings.yml")) as f:
+        punc = yaml.safe_load(f)
+    punc["punc_vocab"]["vocabulary"] = chars
+    punc["punc_biaodian"]["vocabulary"] = tokens
+    punc["running_config"].update(
+        train_list=punc_list, eval_list=punc_list, log_interval_steps=2,
+        eval_interval_steps=1000, outdir=os.path.join(root, "punc-logs"))
+    out = {"vad_model": os.path.join(conf, "vad_model.yml"),
+           "features": feats}
+    for name, cfg in (("vad_data", vad), ("punc", punc)):
+        out[name] = os.path.join(root, f"{name}.yml")
+        with open(out[name], "w", encoding="utf-8") as f:
+            yaml.safe_dump(cfg, f, allow_unicode=True)
+    return out
+
+
+def timed_steps(step, state, batch, steps: int) -> tuple:
+    """A warm step, then ``steps`` steps each waited for: (median ms,
+    minimum ms, the train losses)."""
+    losses, times = [], []
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    losses.append(m["train_loss"])
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["train_loss"])
+    values = [float(v) for v in torch.stack(losses).cpu()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite train_loss: {values}")
+    return statistics.median(times), min(times), values
+
+
+def card_vs_cpu(build, loss_fn, batch: dict, what: str) -> None:
+    """One loss + backward of ``build(device)`` (the same seeded weights on
+    each device) on the card and on the CPU: loss within 1e-4 relative, the
+    gradient's global norm within 1e-3 relative."""
+    result = {}
+    for device in ("cuda", "cpu"):
+        m = build(device).train()
+        total, _ = loss_fn(m, {k: torch.from_numpy(v).to(device)
+                               for k, v in batch.items()})
+        total.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.double().norm() for p in m.parameters()
+             if p.grad is not None]))
+        result[device] = (float(total.detach()), float(norm))
+    (lg, ng), (lc, nc) = result["cuda"], result["cpu"]
+    loss_err, norm_err = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
+    log(f"vad_punc_train: {what} f32 card vs CPU: train_loss {lg:.6f} vs "
+        f"{lc:.6f} (relative {loss_err:.3e}), gradient norm {ng:.6f} vs "
+        f"{nc:.6f} (relative {norm_err:.3e})")
+    if not (math.isfinite(lg) and loss_err <= 1e-4 and norm_err <= 1e-3):
+        raise AssertionError(f"{what}: the step on the card disagrees with "
+                             "the CPU")
+
+
+def run_cli(main_fn, args: list) -> tuple:
+    """``main_fn(args)`` with its stdout and stderr captured: (the last
+    stdout line as JSON or None, stdout, stderr, seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(args)
+    took = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__}: rc {rc}, stderr "
+                             f"{err.getvalue()[-400:]}")
+    lines = out.getvalue().strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    return last, out.getvalue(), err.getvalue(), took
+
+
+def phase_vad_punc_train(steps: int = 10) -> tuple:
+    """VAD and punctuation training on the card. The shipped models at full
+    width with seeded weights: OnlineVAD (``configs/vad_model.yml``, dmodel
+    32) on a batch of ``configs/vad_data.yml``'s shape, B = 16 x 6 s at 8
+    kHz (x [16, 600, 80]) from ``VADDataLoader`` over a seeded corpus of
+    tone bursts: a warm step and 10 timed f32 steps, one step on the batch
+    folded by ``streaming_reshape``, one OfflineVAD step; PuncTransformer
+    (``configs/punc_settings.yml``) on B = 32 x 64 tokens from
+    ``PuncDataLoader``, with and without 768-d teacher features, each a
+    warm step and 10 timed steps. Each model's loss and gradient on the
+    card against the CPU. Then ``cli.train_vad`` -> ``cli.eval_vad
+    --export_native`` and ``cli.train_punc --bert_feature_dir`` ->
+    ``cli.eval_punc`` on the corpora (4 steps each with a save; each eval
+    must restore and print its JSON). No kernel of the port runs on this
+    path: K1's and K1b's counts must stay 0. Returns them."""
+    from tensorflowasr_tpu_torch.cli import (
+        eval_punc,
+        eval_vad,
+        train_punc,
+        train_vad,
+    )
+    from tensorflowasr_tpu_torch.cli.common import (
+        build_punc_model,
+        build_vad_model,
+    )
+    from tensorflowasr_tpu_torch.data.vad_dataloader import VADDataLoader
+    from tensorflowasr_tpu_torch.models.vad import OfflineVAD
+    from tensorflowasr_tpu_torch.train import punc_trainer, vad_trainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+    from tensorflowasr_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        paths = vad_punc_configs(root)
+        vad_config = UserConfig(paths["vad_data"], paths["vad_model"])
+        punc_config = UserConfig(paths["punc"], paths["punc"])
+
+        def run():
+            dl = VADDataLoader(vad_config)
+            numpy_vad = dl.generate(train=True)
+            if numpy_vad["x"].shape != (VAD_B, VAD_SECONDS * 100, 80):
+                raise AssertionError(f"VAD batch {numpy_vad['x'].shape}")
+            model, state = build_vad_model(vad_config, "cuda")
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in numpy_vad.items()}
+            step = vad_trainer.make_vad_train_step(model, global_batch=VAD_B)
+            med, low, losses = timed_steps(step, state, batch, steps)
+            n_params = sum(p.numel() for p in model.parameters())
+            log(f"vad_punc_train: OnlineVAD dmodel {model.dmodel} "
+                f"({n_params} parameters) f32 train step B={VAD_B} x "
+                f"{VAD_SECONDS} s at {VAD_SR} Hz (x {list(batch['x'].shape)},"
+                f" {float(numpy_vad['labels'].mean()):.3f} of the frames "
+                f"voiced): median {med:.3f} ms (min {low:.3f}; {steps} "
+                f"steps, each waited for), "
+                f"{VAD_B * VAD_SECONDS / med * 1e3:.1f} audio s/s; train_loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+                f" [{CARD}]")
+            trace(lambda: [step(state, batch) for _ in range(steps)], steps,
+                  f"vad_punc_train: OnlineVAD train step B={VAD_B}, back to "
+                  f"back [{CARD}]", "step", 8)
+            folded = vad_trainer.streaming_reshape(
+                numpy_vad, 8, np.random.default_rng(0))
+            _, m = step(state, {k: torch.from_numpy(v).cuda()
+                                for k, v in folded.items()})
+            offline, off_state = build_vad_model(UserConfig(
+                paths["vad_data"], paths["vad_model"],
+                extra={"model_config": {"name": "CNN_Offline_VAD"}}), "cuda")
+            if not isinstance(offline, OfflineVAD):
+                raise AssertionError("not the offline VAD")
+            _, m_off = vad_trainer.make_vad_train_step(
+                offline, global_batch=VAD_B)(off_state, batch)
+            torch.cuda.synchronize()
+            log(f"vad_punc_train: one step folded by streaming_reshape to "
+                f"x {list(folded['x'].shape)} (train_loss "
+                f"{float(m['train_loss']):.4f}), one OfflineVAD step "
+                f"(train_loss {float(m_off['train_loss']):.4f})")
+            card_vs_cpu(lambda d: build_vad_model(vad_config, d)[0],
+                        lambda m, b: vad_trainer.loss_and_metrics(m, b,
+                                                                  VAD_B),
+                        numpy_vad, "OnlineVAD")
+
+            char_f, pdl, pmodel, pstate = build_punc_model(punc_config,
+                                                           "cuda")
+            pdl.bert_feature_dir = paths["features"]
+            numpy_punc = pdl.generate(True)
+            shapes = {k: v.shape for k, v in numpy_punc.items()}
+            if shapes["ids"] != (PUNC_B, PUNC_LEN) or \
+                    shapes["bert_features"] != (PUNC_B, PUNC_LEN, 768):
+                raise AssertionError(f"punctuation batch {shapes}")
+            pstep = punc_trainer.make_punc_train_step(pmodel)
+            n_params = sum(p.numel() for p in pmodel.parameters())
+            for with_feats in (True, False):
+                b = {k: torch.from_numpy(v).cuda()
+                     for k, v in numpy_punc.items()
+                     if with_feats or k != "bert_features"}
+                med, low, losses = timed_steps(pstep, pstate, b, steps)
+                log(f"vad_punc_train: PuncTransformer {pmodel.cfg.num_layers}"
+                    f" layers x d {pmodel.cfg.d_model} ({n_params} "
+                    f"parameters, {char_f.num_classes} ids, "
+                    f"{pdl.num_punc_classes} classes) f32 train step B="
+                    f"{PUNC_B} x {PUNC_LEN} tokens "
+                    f"{'with' if with_feats else 'without'} 768-d teacher "
+                    f"features, dropout {pmodel.cfg.dropout}: median "
+                    f"{med:.3f} ms (min {low:.3f}), "
+                    f"{PUNC_B * PUNC_LEN / med * 1e3:.0f} tokens/s; "
+                    f"train_loss {losses[0]:.4f} -> {losses[-1]:.4f} [{CARD}]")
+                if with_feats:
+                    trace(lambda: [pstep(pstate, b) for _ in range(steps)],
+                          steps, f"vad_punc_train: PuncTransformer train "
+                          f"step B={PUNC_B} x {PUNC_LEN} with teacher "
+                          f"features, back to back [{CARD}]", "step", 8)
+            # the card against the CPU at dropout 0 (its masks differ)
+            quiet = UserConfig(paths["punc"], paths["punc"],
+                               extra={"model_config": {"rate": 0.0}})
+            card_vs_cpu(lambda d: build_punc_model(quiet, d)[2],
+                        punc_trainer.loss_and_metrics, numpy_punc,
+                        "PuncTransformer (teacher features, dropout 0)")
+
+            vad_args = ["--data_config", paths["vad_data"], "--model_config",
+                        paths["vad_model"], "--device", "cuda"]
+            _, _, _, t_train = run_cli(train_vad.main,
+                                       vad_args + ["--total_steps", "4"])
+            native = os.path.join(root, "vad_native")
+            got, out, err, t_eval = run_cli(
+                eval_vad.main, vad_args + ["--max_batches", "2",
+                                           "--export_native", native])
+            if "no VAD checkpoint" in err or set(got) != {"acc", "f1"} or \
+                    not os.listdir(native):
+                raise AssertionError(f"cli.eval_vad: {got}, {err[-300:]}")
+            log(f"vad_punc_train: cli.train_vad 4 steps of B={VAD_B} in "
+                f"{t_train:.2f} s; cli.eval_vad restored step 4, wrote the "
+                f"native artifact ({sorted(os.listdir(native))}) and scored "
+                f"2 batches in {t_eval:.2f} s: {json.dumps(got)}")
+            punc_args = ["--data_config", paths["punc"], "--model_config",
+                         paths["punc"], "--device", "cuda"]
+            _, _, _, t_train = run_cli(
+                train_punc.main, punc_args + [
+                    "--total_steps", "4", "--bert_feature_dir",
+                    paths["features"]])
+            got, out, err, t_eval = run_cli(eval_punc.main,
+                                            punc_args + ["--max_batches",
+                                                         "2"])
+            if "no punctuation checkpoint" in err or \
+                    set(got) != {"bd_acc", "bd_loss"}:
+                raise AssertionError(f"cli.eval_punc: {got}, {err[-300:]}")
+            with open(os.path.join(root, "punc-logs", "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            if [m["step"] for m in logged] != [2, 4] or not all(
+                    m["feature_map_loss"] > 0 for m in logged):
+                raise AssertionError(f"train_punc's metrics {logged}")
+            log(f"vad_punc_train: cli.train_punc 4 steps of B={PUNC_B} with "
+                f"teacher features in {t_train:.2f} s (train_loss "
+                f"{logged[0]['train_loss']:.3f} -> "
+                f"{logged[-1]['train_loss']:.3f}); cli.eval_punc restored "
+                f"step 4 and scored 2 batches in {t_eval:.2f} s: "
+                f"{json.dumps(got)}")
+
+        _, launches = counted(run)
+    if launches != (0, 0):
+        raise AssertionError(f"the VAD and punctuation path launched K1 and "
+                             f"K1b {launches} times")
+    log(f"vad_punc_train: K1 and K1b launched 0 times (no kernel of the "
+        f"port is on this path); phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Block streaming: ConformerCTC with speech_config.streaming (the chunks
+# folded into the batch before the frontend), configs/Streaming_ConformerS.yml
+# ---------------------------------------------------------------------------
+
+BLOCK_TRAIN_CHUNKS = 17      # the loader's 8 s bucket, 128000 samples,
+                             # rounded up to whole 7680-sample chunks
+BLOCK_FILE_SECONDS = (2.0, 3.5, 5.0, 8.0)
+
+
+def streaming_data_yml(root: str, source: str) -> str:
+    """A copy of the data YAML ``source`` with ``streaming: true``."""
+    import yaml
+
+    with open(source) as f:
+        data = yaml.safe_load(f)
+    data["speech_config"].update(streaming=True, streaming_bucket=0.5)
+    path = os.path.join(root, "streaming_" + os.path.basename(source))
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f)
+    return path
+
+
+def block_trainer(data_yml: str, device: str, extra=None):
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    model_yml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "configs", "Streaming_ConformerS.yml")
+    trainer = CTCTrainer(UserConfig(data_yml, model_yml, extra=extra),
+                         N_PHONE, N_CHAR, blank_id=N_PHONE - 1,
+                         device=device, compute_dtype="float32")
+    trainer.init_state(seed=0)
+    return trainer
+
+
+def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
+    """The block-streaming ConformerCTC on the card: seeded full-width
+    ``configs/Streaming_ConformerS.yml`` (dmodel 256, 4 blocks, 4 x 64
+    heads, kernel 5) with ``configs/am_data.yml``, ``streaming: true``
+    written into a temporary copy. ``predict_step`` in f32 at B = 128 x 7.2
+    s (15 chunks, folded to [1920, 7680] for K1b 'same'), median of 5, and
+    its stage split; f32 train steps at B = 128 x the loader's chunk-
+    quantised 8 s (17 chunks, input_length 204), a warm step and 10 timed;
+    the encoder and one loss + backward on the card against the CPU on B =
+    2 x 2 chunks; ``cli.train_asr`` -> ``cli.eval_am`` -> ``cli.test_asr``
+    on ``write_corpus``'s corpus (test_asr's wav is a whole number of
+    chunks, 16: the JAX package's test_asr pads a wav only to hop x
+    reduction factor, so another length raises in its streaming encoder,
+    and the port keeps that); ``OfflineASRSession`` on 2 / 3.5 / 5 / 8 s
+    files, one 7680-sample chunk an encode, its encoder rows joined within
+    1e-3 of the folded encode of the padded file. K1b's launches are
+    counted exactly in each. Returns them."""
+    from tensorflowasr_tpu_torch.cli import eval_am, test_asr, train_asr
+    from tensorflowasr_tpu_torch.models.conformer import (
+        StreamingConformerEncoder,
+    )
+    from tensorflowasr_tpu_torch.serve.engines import ASREngine, predict_step
+    from tensorflowasr_tpu_torch.serve.offline_session import (
+        MIN_PIECE_SAMPLES,
+        OfflineASRSession,
+    )
+    from tensorflowasr_tpu_torch.utils.audio import write_wav
+    from tensorflowasr_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device("cuda")
+    launches = (0, 0)
+    with tempfile.TemporaryDirectory() as root:
+        data_yml = streaming_data_yml(
+            root, os.path.join(root_dir, "configs", "am_data.yml"))
+        trainer = block_trainer(data_yml, "cuda")
+        model, cfg = trainer.state.model.eval(), trainer.model_cfg
+        if (cfg.dmodel, cfg.num_blocks, cfg.num_heads, cfg.head_size,
+                cfg.kernel_size, cfg.chunk_samples) != (256, 4, 4, 64, 5,
+                                                        REQUEST_SAMPLES) or \
+                not isinstance(model.encoder, StreamingConformerEncoder):
+            raise AssertionError(f"not the full-width streaming config: {cfg}")
+        chunk = cfg.chunk_samples
+        seconds = BLOCK_CHUNKS * chunk / SR
+        wav = torch.from_numpy(noise((BLOCK_B, BLOCK_CHUNKS * chunk),
+                                     seed=21)).to(dev)
+        t_enc = BLOCK_CHUNKS * chunk // 640
+        length = torch.full((BLOCK_B,), t_enc, dtype=torch.int32, device=dev)
+
+        def predict():
+            out = predict_step(model, wav, length)
+            torch.cuda.synchronize()
+            check_outputs(out, BLOCK_B, t_enc)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = predict_step(model, wav, length)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            check_outputs(out, BLOCK_B, t_enc)
+            return times
+
+        times, n = counted(predict)
+        launches = add(launches, expect(n, reps + 1,
+                                        f"{reps + 1} block predict calls"))
+        step = statistics.median(times)
+        log(f"block_stream: predict_step f32 B={BLOCK_B} x {seconds} s "
+            f"({BLOCK_CHUNKS} chunks of {chunk}, K1b on "
+            f"[{BLOCK_B * BLOCK_CHUNKS}, {chunk}]): median "
+            f"{step * 1e3:.3f} ms (min {min(times) * 1e3:.3f}), per-stream "
+            f"RTF {step / (BLOCK_B * seconds):.3e}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
+        log(f"block_stream: f32 stages (ms): "
+            f"{json.dumps(stage_breakdown(model, wav, length))} [{CARD}]")
+        predict_launches = n
+        del wav
+
+        # training at the loader's chunk-quantised 8 s bucket
+        numpy_batch = train_batch(TRAIN_B, BLOCK_TRAIN_CHUNKS * chunk / SR,
+                                  TRAIN_PHONES, TRAIN_CHARS)
+        numpy_batch["input_length"][:] = BLOCK_TRAIN_CHUNKS * chunk // 640
+        batch = trainer._prepare_batch(numpy_batch)
+        state = trainer.state
+        torch.cuda.reset_peak_memory_stats()
+        (med, low, losses), n = counted(
+            lambda: timed_steps(trainer.train_step, state, batch, steps))
+        launches = add(launches, expect(n, steps + 1,
+                                        f"{steps + 1} block train steps"))
+        audio_s = TRAIN_B * BLOCK_TRAIN_CHUNKS * chunk / SR
+        log(f"block_stream: train_step f32 B={TRAIN_B} x "
+            f"{BLOCK_TRAIN_CHUNKS * chunk / SR} s ({BLOCK_TRAIN_CHUNKS} "
+            f"chunks, input_length {BLOCK_TRAIN_CHUNKS * chunk // 640}), "
+            f"{TRAIN_PHONES} phones, {TRAIN_CHARS} chars, dropout "
+            f"{cfg.dropout}: median {med:.3f} ms (min {low:.3f}; {steps} "
+            f"steps, each waited for), {audio_s / med * 1e3:.1f} audio s/s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; train_loss {losses[0]:.4f} -> {losses[-1]:.4f} [{CARD}]")
+        log(f"block_stream: f32 train stages (ms): "
+            f"{json.dumps(train_stage_split(trainer, batch))} [{CARD}]")
+        trace(lambda: [trainer.train_step(state, batch) for _ in range(3)],
+              3, f"block_stream: train_step f32 B={TRAIN_B}, back to back "
+              f"[{CARD}]", "step", 8)
+        del trainer, state, batch, model
+        torch.cuda.empty_cache()
+
+        # the card against the CPU, dropout 0, B = 2 x 2 chunks
+        from tensorflowasr_tpu_torch.train.asr_trainer import (
+            loss_and_metrics,
+        )
+
+        no_dropout = {"model_config": {"dropout": 0.0,
+                                       "ctcdecoder_dropout": 0.0,
+                                       "translator_dropout": 0.0}}
+        small = train_batch(2, 2 * chunk / SR, 8, 4)
+        small["input_length"][:] = 2 * chunk // 640
+        result = {}
+        for device in ("cuda", "cpu"):
+            t = block_trainer(data_yml, device, extra=no_dropout)
+            m = t.state.model
+            b = t._prepare_batch(small)
+            with torch.no_grad():
+                enc = m.eval().encode(b["wav"]).cpu()
+            total, _ = loss_and_metrics(m.train(), b, t.blank_id)
+            total.backward()
+            norm = torch.linalg.vector_norm(torch.stack(
+                [p.grad.double().norm() for p in m.parameters()]))
+            result[device] = (enc, float(total.detach()), float(norm))
+        enc_err = within(result["cuda"][0], result["cpu"][0], rtol=0,
+                         atol=1e-3)
+        (_, lg, ng), (_, lc, nc) = result["cuda"], result["cpu"]
+        loss_err, norm_err = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
+        log(f"block_stream: f32 card vs CPU on B=2 x 2 chunks, dropout 0: "
+            f"encoder max|err| {enc_err:.3e}; train_loss {lg:.6f} vs "
+            f"{lc:.6f} (relative {loss_err:.3e}), gradient norm {ng:.6f} vs "
+            f"{nc:.6f} (relative {norm_err:.3e})")
+        if not (math.isfinite(lg) and loss_err <= 1e-4
+                and norm_err <= 1e-3):
+            raise AssertionError("the block train step on the card "
+                                 "disagrees with the CPU")
+
+        # the CLIs on write_corpus's corpus, streaming on
+        cli_root = os.path.join(root, "cli")
+        os.makedirs(cli_root)
+        cli_data = streaming_data_yml(cli_root, write_corpus(cli_root))
+        common = ["--data_config", cli_data, "--model_config",
+                  os.path.join(root_dir, "configs",
+                               "Streaming_ConformerS.yml"),
+                  "--device", "cuda"]
+        wav_path = os.path.join(cli_root, "whole_chunks.wav")
+        write_wav(wav_path, noise(16 * chunk, seed=22) * 3, SR)
+
+        def clis():
+            t0 = time.perf_counter()
+            run_cli(train_asr.main, common + ["--total_steps", "3",
+                                              "--data_workers", "2",
+                                              "--compute_dtype", "float32"])
+            t_train = time.perf_counter() - t0
+            scores, _, err, t_eval = run_cli(eval_am.main,
+                                             common + ["--max_batches", "2"])
+            if "no checkpoint found" in err:
+                raise AssertionError("cli.eval_am did not restore")
+            _, out, err, t_test = run_cli(test_asr.main, common + [
+                "--wav", wav_path, "--compute_dtype", "float32"])
+            if "no checkpoint found" in err or "phones:" not in out:
+                raise AssertionError(f"cli.test_asr: {out[-300:]}")
+            return scores, out, t_train, t_eval, t_test
+
+        (scores, out, t_train, t_eval, t_test), n = counted(clis)
+        launches = add(launches, expect(
+            n, 3 + 2 + 2, "the block train_asr, eval_am and test_asr calls"))
+        for key in ("phone_cer", "char_cer"):
+            if not math.isfinite(scores[key]):
+                raise AssertionError(f"eval_am: {key} = {scores[key]}")
+        decoded = [line for line in out.splitlines()
+                   if line.startswith(("phones:", "audio"))]
+        log(f"block_stream: cli.train_asr 3 f32 steps of B={CLI_B} in "
+            f"{t_train:.2f} s; cli.eval_am restored step 3 and scored 2 "
+            f"batches in {t_eval:.2f} s: {json.dumps(scores)}; cli.test_asr "
+            f"on a 16-chunk wav in {t_test:.2f} s: {decoded[-1]}")
+
+        # OfflineASRSession, one chunk an encode, against the folded encode
+        trainer = block_trainer(cli_data, "cuda")
+        if not trainer.restore():
+            raise AssertionError("no block checkpoint to serve")
+        model = trainer.state.model.eval()
+        asr = ASREngine(model, sample_rate=SR, text_featurizer=CharVocab())
+        session = OfflineASRSession(asr)
+        session.transcribe_wav(noise(SR, seed=23))              # warm-up
+        files = [noise(int(s * SR), seed=30 + i)
+                 for i, s in enumerate(BLOCK_FILE_SECONDS)]
+        encodes = sum(1 for w in files for s in range(0, len(w), chunk)
+                      if len(w[s:s + chunk]) >= MIN_PIECE_SAMPLES)
+        tap = Tap(asr, "extract_feature")
+
+        def requests():
+            walls = []
+            for w in files:
+                t0 = time.perf_counter()
+                segments = session.transcribe_wav(w)
+                walls.append(time.perf_counter() - t0)
+                if len(segments) != 1 or not isinstance(
+                        segments[0]["text"], str):
+                    raise AssertionError(f"bad segments {segments}")
+            return walls
+
+        walls, n = counted(requests)
+        rows = tap.remove()
+        launches = add(launches, expect(n, encodes,
+                                        f"{encodes} block session encodes"))
+        worst, at = 0.0, 0
+        for w in files:
+            pieces = -(-len(w) // chunk)
+            padded = np.zeros((1, pieces * chunk), np.float32)
+            padded[0, :len(w)] = w
+            with torch.no_grad():
+                folded = model.encode(torch.from_numpy(padded).to(dev))[0]
+            n_used = sum(1 for s in range(0, len(w), chunk)
+                         if len(w[s:s + chunk]) >= MIN_PIECE_SAMPLES)
+            used = rows[at:at + n_used]
+            at += n_used
+            joined = torch.from_numpy(np.concatenate(used)).to(dev)
+            worst = max(worst, within(joined, folded[:len(joined)], rtol=0,
+                                      atol=1e-3))
+        log(f"block_stream: OfflineASRSession "
+            + ", ".join(f"{s} s {t * 1e3:.3f} ms" for s, t in
+                        zip(BLOCK_FILE_SECONDS, walls))
+            + f" ({encodes} B=1 chunk encodes); its encoder rows joined vs "
+            f"the folded encode of each padded file: max|err| {worst:.3e} "
+            f"[{CARD}]")
+    log(f"block_stream: K1 and K1b launched {launches}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches, predict_launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2838,6 +3481,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         socket = phase_serve_socket(cli_dir, chunk_dir)
         vad_punc = phase_serve_vad_punc(cli_dir, chunk_dir)
+    torch.cuda.empty_cache()
+    phase_vad_punc_train()
+    torch.cuda.empty_cache()
+    block, block_predict = phase_block_stream()
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
@@ -2849,7 +3496,9 @@ def main() -> int:
               "chunk train_asr, eval_am and test_chunk_asr CLI calls":
                   chunk["train_cli"],
               "model server's served window": socket,
-              "VAD and punctuation sessions": vad_punc}
+              "VAD and punctuation sessions": vad_punc,
+              "block-streaming predict, train, CLI and session calls":
+                  block}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)
@@ -2905,6 +3554,9 @@ def main() -> int:
         "replaced_ms": serve["replaced_ms"],
         "same_shapes": {key: k1["log_mel"][key]
                         for key in ("train", "request")},
+        # the block-streaming fold; launches are its predict_step calls
+        "block_stream_shape": dict(k1["log_mel"]["block_stream"],
+                                   launches=block_predict[1]),
         # B=128 x 7 s with a given (trainable) matrix: K1 + dense_mel_kernel
         "given_matrix": k1["log_mel"]["given_matrix"],
         "valid_shapes": {key: dict(k1_chunk["log_mel"][key],

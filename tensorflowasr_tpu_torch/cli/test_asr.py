@@ -17,6 +17,12 @@ model's artifact for the standalone C++ engine (``cpp/serving``
 ``asr_offline``; ``export/native_export.py``) with copies of the two
 vocabularies. ``--export_savedmodel`` (TF SavedModels) is not ported and
 raises.
+
+With ``speech_config.streaming: true`` the model is the block-streaming
+ConformerCTC. The wav is padded only to hop x reduction factor, as in the
+JAX CLI, so its length must be a whole number of ``chunk_samples`` (7680 at
+16 kHz and ``streaming_bucket`` 0.5): any other length raises ValueError in
+the encoder, as it does in the JAX package.
 """
 
 from __future__ import annotations

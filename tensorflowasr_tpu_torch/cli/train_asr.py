@@ -7,7 +7,9 @@ chunk-streaming ChunkConformer.
 
 Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: dispatches on
 ``model_config.name`` (``ChunkConformer`` -> ``ChunkTrainer`` on the chunk
-dataloader, anything else -> ``CTCTrainer``), resumes from the newest
+dataloader, anything else -> ``CTCTrainer``, which with
+``speech_config.streaming: true`` trains the block-streaming ConformerCTC on
+chunk-quantised lengths), resumes from the newest
 checkpoint under ``running_config.outdir``/checkpoints when there is one,
 trains ``--total_steps`` steps, logs to ``metrics.jsonl`` and saves at the
 configured intervals. ``--data_procs`` > 0 is not ported yet and raises.

@@ -1,8 +1,8 @@
 """Evaluation harness: phone and char SER / CER with S/I/D breakdowns.
 
-Counterpart of ``AMTester`` and ``ChunkTester`` in
-``tensorflowasr_tpu/eval/testers.py``: drives a predict step over an eval
-iterator and accumulates streaming metrics on the host.
+Counterpart of ``AMTester``, ``ChunkTester``, ``VADTester`` and
+``PuncTester`` in ``tensorflowasr_tpu/eval/testers.py``: drives a predict
+or eval step over an eval iterator and accumulates metrics on the host.
 
     tester.run(batch_iter, max_batches) -> dict of final metrics
 """
@@ -131,3 +131,43 @@ class ChunkTester:
 
     def result(self) -> dict:
         return _result(self.phone_acc, self.char_acc)
+
+
+def _run_eval_step(eval_step: Callable, state, batch_iter,
+                   max_batches: Optional[int], keys) -> dict:
+    """The mean of each of ``keys`` over the eval step's batch metrics."""
+    device = next(state.model.parameters()).device
+    seen = {k: [] for k in keys}
+    for step, batch in enumerate(batch_iter):
+        if max_batches is not None and step >= max_batches:
+            break
+        m = eval_step(state, {k: torch.from_numpy(np.asarray(v)).to(device)
+                              for k, v in batch.items()})
+        for k in keys:
+            seen[k].append(float(m[k]))
+    return {k: float(np.mean(v)) for k, v in seen.items()}
+
+
+class VADTester:
+    """Frame accuracy and F1 of the voiced class, averaged over batches."""
+
+    def __init__(self, eval_step: Callable, state):
+        self.eval_step = eval_step
+        self.state = state
+
+    def run(self, batch_iter, max_batches: Optional[int] = None) -> dict:
+        m = _run_eval_step(self.eval_step, self.state, batch_iter,
+                           max_batches, ("vad_acc", "f1"))
+        return {"acc": m["vad_acc"], "f1": m["f1"]}
+
+
+class PuncTester:
+    """Masked punctuation accuracy and loss, averaged over batches."""
+
+    def __init__(self, eval_step: Callable, state):
+        self.eval_step = eval_step
+        self.state = state
+
+    def run(self, batch_iter, max_batches: Optional[int] = None) -> dict:
+        return _run_eval_step(self.eval_step, self.state, batch_iter,
+                              max_batches, ("bd_acc", "bd_loss"))

@@ -5,6 +5,10 @@ Counterpart of ``tensorflowasr_tpu/models/conformer.py``:
 - MelFrontend       wav -> log-mel (or dB spectrogram); the power spectrum
                     runs the K1 kernel on a CUDA tensor
 - ConformerEncoder  mel -> ConvSubsampling -> N x ConformerBlock
+- StreamingConformerEncoder
+                    the block-streaming encoder: fixed-size time chunks
+                    folded into the batch axis before the frontend, so no
+                    chunk sees another
 - CTCDecoder        Dense -> M x ConformerBlock -> Dense(classes) in f32
 - Translator        phone embedding -> N x RBlock (cross-attention with PE)
                     -> Dense(char classes) in f32
@@ -15,9 +19,9 @@ In training mode (``model.train()``) dropout, batch-statistics BatchNorm and
 (with ``spec_augment``) SpecAugment on the log-mel are active; their random
 draws come from the generator handed over with ``layers.set_generator``.
 
-The block-streaming encoder, the LEAF frontend and ``add_wav_info`` are not
-ported yet and raise. Weights come from ``models/convert.py`` (flax
-variables) or from :func:`build_model`'s seeded random init.
+The LEAF frontend and ``add_wav_info`` are not ported yet and raise.
+Weights come from ``models/convert.py`` (flax variables) or from
+:func:`build_model`'s seeded random init.
 """
 
 from __future__ import annotations
@@ -85,7 +89,9 @@ class ConformerConfig:
     specaug_freq_width: int = 27
     specaug_time_masks: int = 2
     specaug_time_ratio: float = 0.05
+    # the block-streaming encoder and its chunk length in seconds
     streaming: bool = False
+    streaming_bucket: float = 0.5
     # compute
     dtype_str: str = "float32"               # compute dtype for matmuls
     # scan_layers / scan_unroll choose how the JAX package traces its
@@ -105,6 +111,15 @@ class ConformerConfig:
     @property
     def hop_size(self) -> int:
         return self.sample_rate * self.stride_ms // 1000
+
+    @property
+    def chunk_samples(self) -> int:
+        """Samples a streaming chunk, ``streaming_bucket`` seconds rounded
+        down to whole encoder frames (hop x reduction factor), at least
+        one."""
+        quantum = self.hop_size * self.reduction_factor
+        raw = int(self.streaming_bucket * self.sample_rate)
+        return max(quantum, (raw // quantum) * quantum)
 
     @classmethod
     def from_user_config(cls, config, dtype_str: str = "float32"
@@ -144,6 +159,7 @@ class ConformerConfig:
             specaug_time_masks=g(sc, "specaug_time_masks", 2),
             specaug_time_ratio=g(sc, "specaug_time_ratio", 0.05),
             streaming=g(sc, "streaming", False),
+            streaming_bucket=g(sc, "streaming_bucket", 0.5),
             dtype_str=dtype_str,
             scan_layers=g(mc, "scan_layers", False),
             scan_unroll=g(mc, "scan_unroll", 1),
@@ -234,8 +250,12 @@ class ConformerEncoder(nn.Module):
             for _ in range(cfg.num_blocks)])
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        return self._stack(self.mel_layer(fe.wav_to_float(wav)))
+
+    def _stack(self, mel: torch.Tensor) -> torch.Tensor:
+        """log-mel [B, F, n_mels] -> SpecAugment in training mode ->
+        subsampling -> blocks -> [B, T', dmodel] f32."""
         c = self.cfg
-        mel = self.mel_layer(fe.wav_to_float(wav))
         if self.training and c.spec_augment:
             if self.generator is None:
                 raise RuntimeError("training-mode SpecAugment needs a "
@@ -250,6 +270,28 @@ class ConformerEncoder(nn.Module):
         for block in self.blocks:
             x = _remat(block, x, self.generator) if remat else block(x)
         return x.to(torch.float32)
+
+
+class StreamingConformerEncoder(ConformerEncoder):
+    """The block-streaming encoder: wav [B, n * chunk(, 1)] is cut into
+    [B * n, chunk] before the frontend, the offline stack runs on every
+    chunk alone (SpecAugment's ``time_ratio`` is of a chunk) and the output
+    is [B, n * T'_chunk, dmodel]. The 'same' log-mel is normalised by each
+    chunk's own maximum and padded at each chunk's edges, so folding after
+    the frontend would not give these numbers. The submodules and their
+    parameter names are the offline encoder's."""
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        wav = fe.wav_to_float(wav)
+        if wav.dim() == 3:
+            wav = wav[..., 0]
+        b, t = wav.shape
+        chunk = self.cfg.chunk_samples
+        if t % chunk != 0:
+            raise ValueError(f"input length {t} not a multiple of the "
+                             f"streaming chunk {chunk}")
+        x = self._stack(self.mel_layer(wav.reshape(b * (t // chunk), chunk)))
+        return x.reshape(b, -1, self.cfg.dmodel)
 
 
 class CTCDecoder(nn.Module):
@@ -312,13 +354,11 @@ class ConformerCTC(nn.Module):
     def __init__(self, cfg: ConformerConfig, num_phone_classes: int,
                  num_char_classes: int):
         super().__init__()
-        if cfg.streaming:
-            raise NotImplementedError(
-                "the block-streaming encoder is not ported yet")
         self.cfg = cfg
         self.num_phone_classes = num_phone_classes
         self.num_char_classes = num_char_classes
-        self.encoder = ConformerEncoder(cfg)
+        self.encoder = (StreamingConformerEncoder if cfg.streaming
+                        else ConformerEncoder)(cfg)
         self.ctc_decoder = CTCDecoder(cfg, num_phone_classes)
         self.translator = Translator(cfg, num_phone_classes,
                                      num_char_classes)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
+from tensorflowasr_tpu_torch.utils.config import cfg_get
 from tensorflowasr_tpu_torch.utils.telemetry import ThroughputMeter
 
 logger = logging.getLogger(__name__)
@@ -120,3 +121,22 @@ class TrainerBase:
             logger.warning("evaluate: eval iterator yielded no batches")
             return {}
         return fetch_mean(out)
+
+
+class GenericTrainer(TrainerBase):
+    """Built train and eval steps and a train state, wired into the shared
+    fit / eval / checkpoint loop (the VAD and punctuation CLIs use it). The
+    trainer runs on the device the state's model lives on."""
+
+    def __init__(self, state, train_step, eval_step, outdir: str,
+                 running_config=None):
+        self.state = state
+        self.train_step = train_step
+        self.eval_step = eval_step
+        self.outdir = outdir or "."
+        self.device = next(state.model.parameters()).device
+        rc = running_config
+        self.log_interval = cfg_get(rc, "log_interval_steps", 100)
+        self.save_interval = cfg_get(rc, "save_interval_steps", 500)
+        self.eval_interval = cfg_get(rc, "eval_interval_steps",
+                                     self.log_interval)

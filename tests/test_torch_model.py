@@ -255,8 +255,7 @@ def test_eval_mode_is_unchanged_by_the_training_fields():
 
 
 def test_unported_options_raise():
-    for kw in (dict(streaming=True), dict(add_wav_info=True),
-               dict(mel_layer_type="leaf")):
+    for kw in (dict(add_wav_info=True), dict(mel_layer_type="leaf")):
         cfg = tconf.ConformerConfig(**TINY, **kw)
         with pytest.raises(NotImplementedError, match="not ported"):
             tconf.ConformerCTC(cfg, N_PHONE, N_CHAR)
