@@ -1,7 +1,8 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
 paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
-socket model server, its VAD and punctuation serving and training and its
-block-streaming ConformerCTC on one CUDA card, and check them.
+socket model server, its VAD and punctuation serving and training, its
+block-streaming ConformerCTC and its CTC prefix beam search with n-gram
+shallow fusion on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -219,6 +220,26 @@ Phases, in order; any failure raises and the script exits non-zero:
              raises on a wav that is not whole chunks, and the port keeps
              that); ``OfflineASRSession`` on 2 / 3.5 / 5 / 8 s files, its
              per-chunk encoder rows within 1e-3 of the folded encode.
+20. beam_lm - on phase 7's corpus and its calibrated checkpoint (phase
+             16): an order-3 phone LM by ``cli.train_lm`` on that corpus and
+             one over all 231 phones by ``train_ngram_lm`` on a seeded
+             corpus; the card's hash lanes equal to ``_hash_tuple``'s
+             (tokens just below 2^32) and ``score_candidates`` on the card
+             within 1e-6 (and one f32 ulp) of ``NGramLM.score``, BOS contexts
+             included; ``make_beam_predict_step`` (W 8, K 16, the 231-phone
+             LM at 0.3) on B=128 x 7 s of gated tones beside the greedy
+             ``predict_step`` (median of 5 each, waited for), one trace of
+             each (kernels and copies a call, device busy share), one beam
+             call with every implicit sync an error, and 8 rows against the
+             same step on the CPU: best-beam phone ids equal except at a
+             near-tie of the top two beams (reported with its gap), live
+             scores within 1e-4 relative; ``cli.eval_am --lm`` on the card
+             and on the CPU, the same JSON; ``cli.serve_model.build_ops
+             --lm`` served on 127.0.0.1, an 8 s file decoded with the beam on
+             the host from the served ops against the in-process beam
+             ``ASREngine`` on the CPU; ``cli.train_asr --data_procs 2`` and
+             ``0`` for 3 steps each, finite losses, steps/s side by side (the
+             workers hide the card and fail if CUDA starts in them).
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
@@ -226,15 +247,15 @@ calls, each chunk phase's timed runs (the fused phase's too), the chunk
 CLI call, each dtype's chunk train steps, the three chunk train CLI calls,
 the model server's served window, the VAD and punctuation phase's timed
 sessions and files, the VAD and punctuation training phase (which must
-launch neither) and the block-streaming phase's predict, train, CLI and
-session calls, and read just after each; all but the training of VAD and
-punctuation must
-have launched both. K1b counts one launch a log-mel (the
-launch that writes it); K1 counts every launch of the FFT kernel, in any
-epilogue: two a 'same' log-mel (the max pass and the log-mel pass), one a
-'valid' one. Where a phase knows its number of frontend calls it must be
-exact. The stage breakdowns and the card-vs-CPU checks run outside those
-windows. K1's times at the request and the train shape go on
+launch neither), the block-streaming phase's predict, train, CLI and
+session calls and the beam phase's predict calls, ``eval_am --lm``, served
+encodes and train steps, and read just after each; all but the training of
+VAD and punctuation must have launched both. K1b counts one launch a
+log-mel (the launch that writes it); K1 counts every launch of the FFT
+kernel, in any epilogue: two a 'same' log-mel (the max pass and the log-mel
+pass), one a 'valid' one. Where a phase knows its number of frontend calls
+it must be exact. The stage breakdowns and the card-vs-CPU checks run
+outside those windows. K1's times at the request and the train shape go on
 ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel phase.
 The last lines are a JSON line of kernel numbers (K1's times at the serve
 shape, with the request, train, cli and the 'valid' shapes beside them and
@@ -3449,6 +3470,482 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
     return launches, predict_launches
 
 
+# ---------------------------------------------------------------------------
+# CTC prefix beam search with the n-gram LM fused on the card
+# ---------------------------------------------------------------------------
+
+BEAM_B, BEAM_SECONDS = 128, 7.0
+BEAM_W, BEAM_K, BEAM_LM_WEIGHT = 8, 16, 0.3
+BEAM_CPU_ROWS = 8
+# a best beam that differs between the card and the CPU is a near-tie only
+# where its top two beams' scores are this share of the top score apart
+BEAM_NEAR_TIE = 1e-4
+# score_candidates against NGramLM.score: the device adds up to three f32
+# values where numpy adds them in float64 and rounds once, so one f32 ulp
+# (2^-23 of the value) is allowed beside the 1e-6
+LM_SCORE_TOL = dict(rtol=2.0 ** -23, atol=1e-6)
+
+
+def full_vocab_lm(n_seqs: int = 1500, seed: int = 0):
+    """An order-3 phone LM over all 231 classes from a seeded corpus whose
+    next token follows the last two by a rule 70 % of the time, so that the
+    table holds seen trigrams and bigrams and the lookups back off."""
+    from tensorflowasr_tpu_torch.utils.ngram_lm import train_ngram_lm
+
+    rng = np.random.default_rng(seed)
+    v = N_PHONE - 1
+    seqs = []
+    for _ in range(n_seqs):
+        s = [int(x) for x in rng.integers(0, v, 2)]
+        for _ in range(int(rng.integers(4, 30))):
+            s.append((3 * s[-2] + s[-1] + 1) % v if rng.random() < 0.7
+                     else int(rng.integers(0, v)))
+        seqs.append(s)
+    return train_ngram_lm(seqs, N_PHONE, order=3)
+
+
+def check_lm_on_card(lm) -> str:
+    """The card's hash lanes against ``_hash_tuple`` (tokens just below
+    2^32, so that every multiply wraps) and ``score_candidates`` on the
+    card against ``NGramLM.score`` for seeded contexts, BOS contexts among
+    them, and candidates, seen continuations among them."""
+    from tensorflowasr_tpu_torch.utils.ngram_lm import (
+        _hash_torch,
+        _hash_tuple,
+        lm_pack,
+        score_candidates,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(2 ** 32 - 2 ** 12, 2 ** 32 - 1, size=(256, 3))
+    toks[:64] = rng.integers(0, N_PHONE + 1, size=(64, 3))
+    cols = [torch.from_numpy(toks[:, j]).to(dev) for j in range(3)]
+    n_hashes = 0
+    for kind in ("p", "b"):
+        for n in (1, 2, 3):
+            h1, h2 = (h.cpu().numpy() for h in _hash_torch(kind, n, cols[:n]))
+            want = np.asarray([_hash_tuple(kind, [int(t) for t in row[:n]])
+                               for row in toks])
+            if not (np.array_equal(h1, want[:, 0])
+                    and np.array_equal(h2, want[:, 1])):
+                raise AssertionError(f"hash lanes of ({kind}, {n}) differ "
+                                     f"from _hash_tuple on the card")
+            n_hashes += len(toks)
+    packed = lm_pack(lm, dev)
+    v = N_PHONE - 1
+    ctx = rng.integers(0, v, size=(512, 2))
+    ctx[:64] = lm.bos                              # sentence start
+    ctx[64:128, 0] = lm.bos                        # one token in
+    cand = rng.integers(0, v, size=(512, BEAM_K))
+    cand[:, 0] = (3 * ctx[:, 0] + ctx[:, 1] + 1) % v   # seen trigrams
+    got = score_candidates(packed, torch.from_numpy(ctx).to(dev),
+                           torch.from_numpy(cand).to(dev))
+    golden = torch.tensor([[lm.score([t for t in c if t != lm.bos], int(k))
+                            for k in row] for c, row in zip(ctx, cand)])
+    err = within(got.cpu(), golden, **LM_SCORE_TOL)
+    return (f"{n_hashes} hash lanes equal to _hash_tuple's (tokens up to "
+            f"2^32 - 2); score_candidates on {cand.size} (context, "
+            f"candidate) pairs, 2048 of them from BOS-padded contexts, within "
+            f"{err:.3e} of NGramLM.score (table cap {len(lm.key1)}, "
+            f"{lm.n_probe} probes, {len(lm.raw)} entries)")
+
+
+def best_and_gap(beams) -> tuple:
+    """(best prefixes as lists, the top two beams' score gap over the top
+    score's magnitude, per row) of ``ctc_beam_search_decode``'s output."""
+    prefixes, lens, scores = (x.cpu() for x in beams)
+    best = [prefixes[b, 0, :int(lens[b, 0])].tolist()
+            for b in range(len(lens))]
+    gap = ((scores[:, 0] - scores[:, 1]) / scores[:, 0].abs()).tolist()
+    return best, gap
+
+
+def compare_best(card, cpu, what: str) -> tuple:
+    """Best beams of the card against the CPU: equal, or a near-tie of the
+    CPU's top two beams (reported with its gap); live scores within 1e-4
+    relative where the prefixes agree. Returns (report, near-tied rows)."""
+    from tensorflowasr_tpu_torch.ops.beam import NEG_INF
+
+    (cb, _), (pb, pgap) = best_and_gap(card), best_and_gap(cpu)
+    ties, worst = {}, 0.0
+    for b, (x, y) in enumerate(zip(cb, pb)):
+        if x != y:
+            if pgap[b] > BEAM_NEAR_TIE:
+                raise AssertionError(f"{what}: row {b} best beam differs at "
+                                     f"a top-two gap of {pgap[b]:.3e}")
+            ties[b] = pgap[b]
+            continue
+        cs, ps = card[2][b].cpu(), cpu[2][b].cpu()
+        live = ps > NEG_INF / 2
+        if not bool(((cs > NEG_INF / 2) == live).all()):
+            raise AssertionError(f"{what}: row {b} live beams differ")
+        rel = ((cs[live] - ps[live]).abs() / ps[live].abs()).max().item()
+        if rel > 1e-4:
+            raise AssertionError(f"{what}: row {b} scores {rel:.3e} apart")
+        worst = max(worst, rel)
+    listed = ", ".join(f"row {b} gap {g:.3e}" for b, g in ties.items())
+    return (f"best beams equal in {len(cb) - len(ties)} of {len(cb)} rows "
+            f"(near-ties: {listed or 'none'}; smallest top-two gap "
+            f"{min(pgap):.3e}), live scores within {worst:.3e} relative",
+            set(ties))
+
+
+def served_beam_request(client, wav: np.ndarray, host_lm, blank: int):
+    """One file over the served offline ops with the beam on the host, as
+    ``ASREngine.decode`` does it: ``encode`` a chunk at a time, the rows
+    padded to whole groups of 4 chunks, ``ctc_logits``, the beam with the
+    LM on the CPU, the best beam padded with 10 zeros, ``translate``.
+    Returns (phones, char ids, the beam's output, encodes, wall s)."""
+    from tensorflowasr_tpu_torch.ops.beam import ctc_beam_search_decode
+    from tensorflowasr_tpu_torch.utils.ngram_lm import lm_pack
+
+    t0 = time.perf_counter()
+    cs = int(client.call("info")[0][0])
+    encs = [client.call("encode", wav[None, i:i + cs])[0]
+            for i in range(0, len(wav), cs)]
+    frames, enc = encs[0].shape[0], np.concatenate(encs)
+    groups = -(-(-(-len(enc) // frames)) // 4) * 4
+    buf = np.zeros((groups * frames, enc.shape[1]), np.float32)
+    buf[:len(enc)] = enc
+    logits = torch.tensor(client.call("ctc_logits", buf)[0])[None]
+    beams = ctc_beam_search_decode(
+        logits, torch.tensor([len(enc)]), blank_id=blank,
+        beam_width=BEAM_W, prune_k=BEAM_K, ngram_lm=lm_pack(host_lm, "cpu"),
+        lm_weight=BEAM_LM_WEIGHT)
+    phones = beams[0][0, 0, :int(beams[1][0, 0])].tolist()
+    padded = np.zeros((1, len(buf) + 10), np.int32)
+    padded[0, :len(phones)] = phones
+    chars = client.call("translate", padded, buf)[0].argmax(-1).tolist()
+    return phones, chars, beams, len(encs), time.perf_counter() - t0
+
+
+def read_chars(ids, stop: int) -> list:
+    out = []
+    for v in ids:
+        if v == 0 or v == stop:
+            break
+        out.append(CharVocab().iextract(int(v)))
+    return out
+
+
+def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
+    """CTC prefix beam search with the n-gram LM fused on the card, on the
+    cli phase's corpus and its calibrated ConformerCTC(S) checkpoint: (a) an
+    order-3 phone LM by ``cli.train_lm`` on that corpus, and one over all
+    231 phones from a seeded corpus; (b) the card's hash lanes and
+    ``score_candidates`` against numpy; (c) ``make_beam_predict_step`` (W 8,
+    K 16, the 231-phone LM at 0.3) at B = 128 x 7 s of gated tones beside
+    the greedy ``predict_step`` (median of 5 each, waited for), one trace
+    of each, one beam call with every implicit sync an error, and 8 rows
+    against the same step on the CPU; (d) ``cli.eval_am --lm`` on the card
+    and on the CPU, the same JSON; (e) ``cli.serve_model.build_ops --lm``
+    served on 127.0.0.1, an 8 s file decoded with the beam from the served
+    ops against the in-process beam ``ASREngine`` on the CPU; (f)
+    ``cli.train_asr --data_procs 2`` and ``0``, 3 steps each. K1b's
+    launches are counted exactly in (c)-(f). Returns them."""
+    import yaml
+
+    from tensorflowasr_tpu_torch.cli import (
+        eval_am,
+        serve_model,
+        train_asr,
+        train_lm,
+    )
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.ops.beam import ctc_beam_search_decode
+    from tensorflowasr_tpu_torch.serve.engines import ASREngine
+    from tensorflowasr_tpu_torch.serve.model_server import (
+        ModelClient,
+        ModelServer,
+    )
+    from tensorflowasr_tpu_torch.train.asr_trainer import (
+        CTCTrainer,
+        make_beam_predict_step,
+    )
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+    from tensorflowasr_tpu_torch.utils.ngram_lm import NGramLM, lm_pack
+    from tensorflowasr_tpu_torch.utils.profiling import trace
+
+    laps = [time.perf_counter()]
+
+    def lap() -> str:
+        """Seconds since the previous lap, for the phase's log lines."""
+        laps.append(time.perf_counter())
+        return f"{laps[-1] - laps[-2]:.1f} s"
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_yml = os.path.join(root, "configs", "conformerS.yml")
+    cli_data = os.path.join(cli_dir, "data.yml")
+    dev = torch.device("cuda")
+    launches = (0, 0)
+
+    # (a) the LMs
+    lm_npz = os.path.join(cli_dir, "lm_phone3.npz")
+    _, out, _, took = run_cli(train_lm.main, [
+        "--data_config", cli_data, "--unit", "phone", "--order", "3",
+        "--output", lm_npz, "--eval_lists",
+        os.path.join(cli_dir, "eval.list")])
+    cli_lm = NGramLM.load(lm_npz)
+    if (cli_lm.order, cli_lm.vocab_size) != (3, N_PHONE):
+        raise AssertionError(f"cli.train_lm: order {cli_lm.order}, "
+                             f"vocabulary {cli_lm.vocab_size}")
+    log(f"beam_lm: cli.train_lm in {took:.2f} s: "
+        + " / ".join(out.strip().splitlines()))
+    t0 = time.perf_counter()
+    full_lm = full_vocab_lm()
+    log(f"beam_lm: order-3 LM over {N_PHONE} phones from a seeded corpus in "
+        f"{time.perf_counter() - t0:.2f} s (part (a) {lap()})")
+
+    # (b) the hash lanes and the scores on the card
+    log(f"beam_lm: {check_lm_on_card(full_lm)} ({lap()})")
+
+    # (c) make_beam_predict_step at full width on the calibrated checkpoint
+    config = UserConfig(cli_data, model_yml)
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainers = {}
+    for where in ("cuda", "cpu"):
+        t = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                       blank_id=phone_f.blank, device=where)
+        t.init_state()
+        if not t.restore():
+            raise AssertionError(f"no checkpoint under {t.outdir}")
+        trainers[where] = t
+    trainer = trainers["cuda"]
+    model, state, blank = trainer.state.model.eval(), trainer.state, \
+        phone_f.blank
+    wav = torch.from_numpy(np.stack([tones(BEAM_SECONDS, seed=300 + i)
+                                     for i in range(BEAM_B)])).to(dev)
+    t_enc = int(BEAM_SECONDS * SR) // 640
+    length = torch.full((BEAM_B,), t_enc, dtype=torch.int32, device=dev)
+    dev_lm = lm_pack(full_lm, dev)
+    beam_step = make_beam_predict_step(model, blank, beam_width=BEAM_W,
+                                       ngram_lm=dev_lm,
+                                       lm_weight=BEAM_LM_WEIGHT)
+
+    def timed(step):
+        out = step(state, wav, length)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = step(state, wav, length)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check_outputs(out, BEAM_B, t_enc)
+        return out, times
+
+    (beam_out, beam_times), n = counted(lambda: timed(beam_step))
+    launches = add(launches, expect(n, reps + 1,
+                                    f"{reps + 1} beam predict calls"))
+    (greedy_out, greedy_times), n = counted(
+        lambda: timed(trainer.predict_step))
+    launches = add(launches, expect(n, reps + 1,
+                                    f"{reps + 1} greedy predict calls"))
+    beam_ms = statistics.median(beam_times) * 1e3
+    greedy_ms = statistics.median(greedy_times) * 1e3
+    lens = beam_out[1].cpu()
+    if int((lens > 0).sum()) < BEAM_B // 2:
+        raise AssertionError(f"the beam decoded {int((lens > 0).sum())} of "
+                             f"{BEAM_B} rows to something")
+    same_as_greedy = sum(
+        beam_out[0][b, :int(lens[b])].tolist()
+        == greedy_out[0][b, :int(greedy_out[1][b])].tolist()
+        for b in range(BEAM_B))
+    log(f"beam_lm: make_beam_predict_step f32 B={BEAM_B} x {BEAM_SECONDS} s "
+        f"({t_enc} frames, W {BEAM_W}, K {BEAM_K}, order-3 LM over "
+        f"{N_PHONE} phones at {BEAM_LM_WEIGHT}): {spread_ms(beam_times)}; "
+        f"greedy predict_step {spread_ms(greedy_times)}; beam / greedy "
+        f"{beam_ms / greedy_ms:.1f}x; best beams "
+        f"{float(lens.float().mean()):.1f} phones a row on average, "
+        f"{same_as_greedy} of {BEAM_B} rows equal to greedy [{CARD}]")
+    busy = trace(lambda: beam_step(state, wav, length), 1,
+                 f"beam_lm: make_beam_predict_step B={BEAM_B} [{CARD}]",
+                 "call", 8)
+    plain = trace(lambda: trainer.predict_step(state, wav, length), 1,
+                  f"beam_lm: greedy predict_step B={BEAM_B} [{CARD}]",
+                  "call", 4)
+    extra = busy["launches"] - plain["launches"]
+    log(f"beam_lm: the beam adds {extra:.0f} kernels and copies a call, "
+        f"{extra / t_enc:.1f} a frame, "
+        f"{(busy['wall_ms'] - plain['wall_ms']) / t_enc * 1e3:.1f} us a frame "
+        f"by the host clock [{CARD}]")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        checked = beam_step(state, wav, length)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for got, want in zip(checked, beam_out):
+        if not torch.equal(got, want):
+            raise AssertionError("the beam call under the sync check gave "
+                                 "other ids")
+
+    # the card against the CPU on the first rows
+    rows = BEAM_CPU_ROWS
+    cpu_model = trainers["cpu"].state.model.eval()
+    cpu_lm = lm_pack(full_lm, "cpu")
+    cpu_step = make_beam_predict_step(cpu_model, blank, beam_width=BEAM_W,
+                                      ngram_lm=cpu_lm,
+                                      lm_weight=BEAM_LM_WEIGHT)
+    cpu_out = cpu_step(trainers["cpu"].state, wav[:rows].cpu(),
+                       length[:rows].cpu())
+    with torch.no_grad():
+        card_logits = model.ctc_logits(model.encode(wav[:rows]))
+        cpu_logits = cpu_model.ctc_logits(cpu_model.encode(wav[:rows].cpu()))
+    beam_args = dict(blank_id=blank, beam_width=BEAM_W, prune_k=BEAM_K,
+                     lm_weight=BEAM_LM_WEIGHT)
+    card_beams = ctc_beam_search_decode(card_logits, length[:rows],
+                                        ngram_lm=dev_lm, **beam_args)
+    cpu_beams = ctc_beam_search_decode(cpu_logits, length[:rows].cpu(),
+                                       ngram_lm=cpu_lm, **beam_args)
+    report, tied = compare_best(card_beams, cpu_beams, "beam_lm card vs CPU")
+    step_rows = [b for b in range(rows)
+                 if beam_out[0][b, :int(lens[b])].tolist()
+                 == cpu_out[0][b, :int(cpu_out[1][b])].tolist()]
+    chars_equal = sum(torch.equal(beam_out[2][b].cpu(), cpu_out[2][b])
+                      for b in range(rows))
+    log(f"beam_lm: {rows} rows on the card vs the CPU (same checkpoint and "
+        f"LM): {report}; make_beam_predict_step's phone ids equal in "
+        f"{len(step_rows)} of {rows} rows (the card's at B={BEAM_B}), char "
+        f"ids in {chars_equal} (part (c) {lap()})")
+    if set(range(rows)) - set(step_rows) - tied:
+        raise AssertionError("make_beam_predict_step differs from the CPU "
+                             "away from a near-tie")
+    del wav, beam_out, greedy_out, checked
+    torch.cuda.empty_cache()
+
+    # (d) cli.eval_am --lm on both devices
+    common = ["--data_config", cli_data, "--model_config", model_yml,
+              "--lm", lm_npz, "--max_batches", "2", "--log_level", "WARNING"]
+    (card_json, _, err, t_card), n = counted(
+        lambda: run_cli(eval_am.main, common + ["--device", "cuda"]))
+    launches = add(launches, expect(n, 2, "eval_am --lm's 2 batches"))
+    cpu_json, _, cpu_err, t_cpu = run_cli(eval_am.main,
+                                          common + ["--device", "cpu"])
+    if "no checkpoint found" in err + cpu_err:
+        raise AssertionError("eval_am --lm did not restore the checkpoint")
+    if card_json != cpu_json:
+        raise AssertionError(f"eval_am --lm: card {card_json} vs CPU "
+                             f"{cpu_json}")
+    if card_json["phone_D"] >= card_json["phone_N"]:
+        raise AssertionError(f"eval_am --lm decoded nothing: {card_json}")
+    log(f"beam_lm: cli.eval_am --lm {os.path.basename(lm_npz)}, 2 batches: "
+        f"the same JSON on the card ({t_card:.2f} s) and the CPU "
+        f"({t_cpu:.2f} s): {json.dumps(card_json)} ({lap()})")
+
+    # (e) the beam over the socket against the in-process engine on the CPU
+    args = serve_model.parser().parse_args([
+        "--data_config", cli_data, "--model_config", model_yml, "--lm",
+        lm_npz, "--port", "0", "--device", "cuda", "--compute_dtype",
+        "float32", "--log_level", "WARNING"])
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        ops, inline_ops, _ = serve_model.build_ops(args)
+    if "checkpoint under" in err.getvalue():
+        raise AssertionError(f"serve_model: {err.getvalue()[-400:]}")
+    server = ModelServer(ops, tcp_port=0, inline_exec=False,
+                         inline_ops=inline_ops)
+    wav8 = tones(8.0, seed=77)
+    served, failures = {}, []
+
+    def client():
+        cli = ModelClient(tcp_port=server.tcp_port)
+        try:
+            served["out"] = served_beam_request(cli, wav8, cli_lm, blank)
+        except BaseException as e:            # raised on the main thread
+            failures.append(e)
+        finally:
+            cli.close()
+            server.stop()
+
+    def serve():
+        server.start()
+        thread = threading.Thread(target=client, daemon=True)
+        thread.start()
+        server.run_worker_loop()
+        thread.join(timeout=60)
+
+    _, n = counted(serve)
+    if failures:
+        raise failures[0]
+    phones, chars, beams, encodes, wall = served["out"]
+    launches = add(launches, expect(n, encodes,
+                                    f"{encodes} served encodes"))
+    engine = ASREngine(cpu_model, sample_rate=SR, text_featurizer=CharVocab(),
+                       phone_featurizer=phone_f, beam_width=BEAM_W,
+                       ngram_lm=lm_pack(cli_lm, "cpu"),
+                       lm_weight=BEAM_LM_WEIGHT)
+    encs = [engine.extract_feature(wav8[i:i + engine.chunk_samples])
+            for i in range(0, len(wav8), engine.chunk_samples)]
+    ids, ids_len, char_ids = engine._decode(encs, engine.pad_chunks)
+    frames = sum(len(e) for e in encs)
+    cap = -(-(-(-frames // engine.chunk_frames)) // 4) * 4 \
+        * engine.chunk_frames
+    buf = np.zeros((1, cap, encs[0].shape[1]), np.float32)
+    buf[0, :frames] = np.concatenate(encs)
+    with torch.no_grad():
+        cpu_logits = cpu_model.ctc_logits(torch.from_numpy(buf))
+    cpu_beams = ctc_beam_search_decode(
+        cpu_logits, torch.tensor([frames]), ngram_lm=lm_pack(cli_lm, "cpu"),
+        **beam_args)
+    report, tied = compare_best(beams, cpu_beams,
+                                "beam_lm served vs CPU engine")
+    if ids[0, :int(ids_len[0])].tolist() != best_and_gap(cpu_beams)[0][0]:
+        raise AssertionError("ASREngine's beam is not the beam of its "
+                             "logits")
+    text = engine.decode(encs)
+    if not tied:
+        if read_chars(chars, CharVocab().endid()) != text:
+            raise AssertionError(f"served chars {chars[:20]} vs the "
+                                 f"engine's {text[:20]}")
+    if not phones:
+        raise AssertionError("the served beam decoded no phone")
+    log(f"beam_lm: cli.serve_model.build_ops --lm, an 8 s file over "
+        f"127.0.0.1 ({encodes} encodes, the beam on the host) in "
+        f"{wall * 1e3:.3f} ms, {len(phones)} phones, {len(text)} chars, "
+        f"against the in-process beam ASREngine on the CPU: {report} "
+        f"({lap()}) [{CARD}]")
+    del trainers, trainer, model, state, engine, ops
+    torch.cuda.empty_cache()
+
+    # (f) cli.train_asr with batches from worker processes
+    with open(cli_data) as f:
+        data = yaml.safe_load(f)
+    rates = {}
+    for procs in (2, 0):
+        d = dict(data, running_config=dict(
+            data["running_config"], log_interval_steps=3,
+            save_interval_steps=1000, eval_interval_steps=1000,
+            outdir=os.path.join(cli_dir, f"procs{procs}")))
+        d_yml = os.path.join(cli_dir, f"data_procs{procs}.yml")
+        with open(d_yml, "w") as f:
+            yaml.safe_dump(d, f)
+        (_, _, _, took), n = counted(lambda: run_cli(train_asr.main, [
+            "--data_config", d_yml, "--model_config", model_yml,
+            "--device", "cuda", "--total_steps", "3", "--data_procs",
+            str(procs), "--data_workers", "2", "--log_level", "WARNING"]))
+        launches = add(launches, expect(n, 3, f"3 train steps with "
+                                               f"--data_procs {procs}"))
+        with open(os.path.join(cli_dir, f"procs{procs}",
+                               "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        if [m["step"] for m in logged] != [3] or \
+                not math.isfinite(logged[0]["train_loss"]):
+            raise AssertionError(f"--data_procs {procs}: {logged}")
+        rates[procs] = (logged[0]["steps_per_s"], logged[0]["train_loss"],
+                        took)
+    log("beam_lm: cli.train_asr bf16, 3 steps of B=8: " + "; ".join(
+        f"--data_procs {p}: {r[0]:.3f} steps/s over steps 1-3, train_loss "
+        f"{r[1]:.3f}, {r[2]:.2f} s with start-up" for p, r in rates.items())
+        + f" (the workers hide the card from themselves and check that "
+        f"CUDA stayed uninitialised after every batch; {lap()}) [{CARD}]")
+    log(f"beam_lm: K1 and K1b launched {launches}; phase "
+        f"{laps[-1] - laps[0]:.2f} s")
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -3481,6 +3978,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         socket = phase_serve_socket(cli_dir, chunk_dir)
         vad_punc = phase_serve_vad_punc(cli_dir, chunk_dir)
+        torch.cuda.empty_cache()
+        beam = phase_beam_lm(cli_dir)
     torch.cuda.empty_cache()
     phase_vad_punc_train()
     torch.cuda.empty_cache()
@@ -3498,7 +3997,9 @@ def main() -> int:
               "model server's served window": socket,
               "VAD and punctuation sessions": vad_punc,
               "block-streaming predict, train, CLI and session calls":
-                  block}
+                  block,
+              "beam and LM phase's predict calls, eval_am, served encodes "
+              "and train steps": beam}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)

@@ -1,13 +1,15 @@
-"""Shared CLI plumbing: argument parser, config loading, featurizers, and
-the VAD and punctuation models with their checkpoint restore."""
+"""Shared CLI plumbing: argument parser, config loading, featurizers, the
+train-batch streams (threads or worker processes), and the VAD and
+punctuation models with their checkpoint restore."""
 
 from __future__ import annotations
 
 import argparse
+import functools
 import logging
 import os
 import sys
-from typing import Optional, Tuple, Union
+from typing import Callable, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -19,17 +21,24 @@ from tensorflowasr_tpu_torch.utils.text import (
 )
 
 
-def config_parser(description: str) -> argparse.ArgumentParser:
+def config_parser(description: str, model_required: bool = True,
+                  device: bool = True) -> argparse.ArgumentParser:
+    """The flags every CLI takes. A host-only tool passes ``device=False``
+    (no ``--device``); ``model_required=False`` lets ``--model_config``
+    default to the data YAML."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--data_config", required=True,
                    help="data YAML (speech/augments/running config)")
-    p.add_argument("--model_config", required=True,
-                   help="model YAML (model_config section)")
+    p.add_argument("--model_config", required=model_required,
+                   help="model YAML (model_config section)" +
+                        ("" if model_required
+                         else "; optional, defaults to the data YAML"))
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="run on the GPU (default; raises without CUDA) or "
-                        "on the CPU")
+    if device:
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="run on the GPU (default; raises without CUDA) "
+                            "or on the CPU")
     p.add_argument("--log_level", default="INFO")
     return p
 
@@ -43,8 +52,8 @@ def add_training_flags(p: argparse.ArgumentParser) -> None:
                         "prefetched in the background when > 0")
     p.add_argument("--data_procs", type=int, default=0,
                    help="batch-producer PROCESSES, each owning a train-list "
-                        "shard; 0 = threads only. Not ported yet: any other "
-                        "value raises")
+                        "shard (data/mp_prefetch.py); 0 = threads only. Use "
+                        "when batch prep, not the device, limits steps/s")
 
 
 def load_config(args) -> UserConfig:
@@ -78,11 +87,65 @@ def build_featurizers(config: UserConfig
     return phone_f, char_f, p2p, pin, transcripts_are_pinyin
 
 
-def _refuse_data_procs(args) -> None:
+# -- module-level batch streams (picklable for data/mp_prefetch.py) ---------
+
+def am_batch_stream(data_config: str, model_config: str, train: bool = True,
+                    sample_workers: int = 4, worker_id: int = 0,
+                    num_workers: int = 1) -> Iterator[dict]:
+    """Build an ``AMDataLoader`` in THIS process over the worker's shard of
+    the train list and yield its numpy batches forever. Top-level, so that
+    ``functools.partial(am_batch_stream, data_yml, model_yml)`` pickles into
+    ``MPBatchIterator``'s spawned workers."""
+    from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
+
+    config = UserConfig(data_config, model_config)
+    phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
+    dl = AMDataLoader(config, phone_f, char_f, pinyin2phone=p2p, pinyin=pin,
+                      transcripts_are_pinyin=pinyin_txt, seed=worker_id)
+    if num_workers > 1 and train and len(dl.train_list) >= num_workers:
+        dl.train_list = dl.train_list[worker_id::num_workers]
+    while True:
+        yield dl.generate(train=train, num_workers=sample_workers)
+
+
+def chunk_batch_stream(data_config: str, model_config: str,
+                       train: bool = True, sample_workers: int = 4,
+                       worker_id: int = 0, num_workers: int = 1
+                       ) -> Iterator[dict]:
+    """``ChunkDataLoader`` counterpart of :func:`am_batch_stream`."""
+    from tensorflowasr_tpu_torch.data.chunk_dataloader import (
+        ChunkDataLoader,
+    )
+
+    config = UserConfig(data_config, model_config)
+    phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
+    chunk_num = ((config["model_config"] or {})
+                 .get("ChunkConformerFront") or {}).get("chunk_num", 16)
+    dl = ChunkDataLoader(config, phone_f, char_f, chunk_num=chunk_num,
+                         pinyin2phone=p2p, pinyin=pin,
+                         transcripts_are_pinyin=pinyin_txt, seed=worker_id)
+    if num_workers > 1 and train and len(dl.train_list) >= num_workers:
+        dl.train_list = dl.train_list[worker_id::num_workers]
+    while True:
+        yield dl.generate(train=train, num_workers=sample_workers)
+
+
+def make_train_iter(args, thread_iter_fn: Callable[[], Iterator],
+                    stream_fn: Callable[..., Iterator]) -> Iterator:
+    """The train-batch iterator: ``--data_procs`` > 0 spawns that many
+    worker processes over ``stream_fn`` (:func:`am_batch_stream` or
+    :func:`chunk_batch_stream`), each with ``--data_workers /
+    --data_procs`` loading threads; else the loader's own thread-prefetch
+    generator (``thread_iter_fn()``)."""
     if args.data_procs > 0:
-        raise NotImplementedError(
-            "--data_procs > 0 (process workers, data/mp_prefetch.py) is "
-            "not ported yet; use --data_workers threads")
+        from tensorflowasr_tpu_torch.data.mp_prefetch import MPBatchIterator
+
+        factory = functools.partial(
+            stream_fn, args.data_config, args.model_config, True,
+            max(1, args.data_workers // args.data_procs))
+        return MPBatchIterator(factory, num_workers=args.data_procs,
+                               depth=2 * args.data_procs)
+    return thread_iter_fn()
 
 
 def model_name(config: UserConfig) -> str:
@@ -90,14 +153,13 @@ def model_name(config: UserConfig) -> str:
 
 
 def offline_ctc_setup(args, config: UserConfig, compute_dtype: str):
-    """What ``train_asr`` and ``eval_am`` share for the offline family:
-    refuse what is not ported, then build the dataloader and the trainer
-    (with fresh random weights, computing in ``compute_dtype``) from the
-    config. -> (dataloader, trainer, char featurizer)."""
+    """What ``train_asr`` and ``eval_am`` share for the offline family: the
+    dataloader and the trainer (with fresh random weights, computing in
+    ``compute_dtype``) built from the config. -> (dataloader, trainer,
+    char featurizer)."""
     from tensorflowasr_tpu_torch.data.am_dataloader import AMDataLoader
     from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 
-    _refuse_data_procs(args)
     phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
     dl = AMDataLoader(config, phone_f, char_f, pinyin2phone=p2p, pinyin=pin,
                       transcripts_are_pinyin=pinyin_txt)
@@ -117,7 +179,6 @@ def chunk_setup(args, config: UserConfig, compute_dtype: str):
     )
     from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
 
-    _refuse_data_procs(args)
     phone_f, char_f, p2p, pin, pinyin_txt = build_featurizers(config)
     trainer = ChunkTrainer(config, phone_f.num_classes, char_f.num_classes,
                            device=args.device, compute_dtype=compute_dtype)

@@ -7,6 +7,7 @@
          --stream_slots 16 --stream_wait_ms 8] \\
         [--vad_data_config configs/vad_data.yml \\
          --vad_model_config configs/vad_model.yml] \\
+        [--beam_width W | --lm LM.npz|LM.arpa [--lm_weight 0.3]] \
         [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
 Counterpart of ``tensorflowasr_tpu/cli/serve_model.py``. Restores the newest
@@ -22,7 +23,13 @@ init when there is none); without them it is the energy gate.
 Every op is warmed on the main thread before the server starts; then it
 prints ``model server ready on <endpoint>`` and runs the offline ops on the
 main thread. ``fused_decoder`` comes from the chunk model config.
-``--beam_width`` and ``--lm`` are not ported yet and raise.
+``--beam_width`` > 0 makes the ``ASREngine`` decode with the CTC prefix beam
+search, and ``--lm`` (an ``.npz`` from ``cli.train_lm`` or an ARPA text file
+over the phone vocabulary; it implies ``--beam_width 8``) fuses that LM on
+the serving device; ``build_ops`` warms the engine's phone decode with the
+ops.
+As in the JAX package, no op of the table decodes (a client decodes from
+``ctc_logits``), so the served ops answer the same with and without them.
 """
 
 from __future__ import annotations
@@ -120,8 +127,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_wait_ms", type=float, default=8.0,
                    help="dynamic-batching coalescing window")
     p.add_argument("--beam_width", type=int, default=0,
-                   help="not ported yet")
-    p.add_argument("--lm", default=None, help="not ported yet")
+                   help=">0: the engine decodes with the CTC prefix beam "
+                        "search instead of greedy")
+    p.add_argument("--lm", default=None,
+                   help="phone n-gram LM for shallow fusion: .npz "
+                        "(cli/train_lm) or .arpa (KenLM text); implies "
+                        "--beam_width 8 if unset")
     p.add_argument("--lm_weight", type=float, default=0.3)
     return p
 
@@ -134,10 +145,6 @@ def build_ops(args) -> Tuple[Dict, set, Optional[object]]:
     from tensorflowasr_tpu_torch.serve.model_server import build_asr_ops
     from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 
-    if args.beam_width or args.lm:
-        raise NotImplementedError(
-            "--beam_width / --lm (prefix beam search with the n-gram LM) "
-            "are not ported yet")
     config = load_config(args)
     phone_f, char_f = build_featurizers(config)[:2]
     trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
@@ -147,9 +154,20 @@ def build_ops(args) -> Tuple[Dict, set, Optional[object]]:
     if not trainer.restore():
         print(f"warning: no ASR checkpoint under {trainer.outdir}; serving "
               f"random init", file=sys.stderr)
+    ngram, beam_width = None, args.beam_width
+    if args.lm:
+        from tensorflowasr_tpu_torch.utils.ngram_lm import NGramLM, lm_pack
+
+        host_lm = (NGramLM.from_arpa(args.lm, phone_f.token_to_index,
+                                     phone_f.num_classes)
+                   if args.lm.endswith(".arpa") else NGramLM.load(args.lm))
+        ngram = lm_pack(host_lm, trainer.device)
+        beam_width = beam_width or 8
     asr_engine = ASREngine(trainer.state.model.eval(),
                            sample_rate=trainer.sample_rate,
-                           text_featurizer=char_f, phone_featurizer=phone_f)
+                           text_featurizer=char_f, phone_featurizer=phone_f,
+                           beam_width=beam_width, ngram_lm=ngram,
+                           lm_weight=args.lm_weight)
     vad_engine = None
     if args.vad_data_config and args.vad_model_config:
         vad_engine = build_vad_engine(args.vad_data_config,
@@ -161,6 +179,7 @@ def build_ops(args) -> Tuple[Dict, set, Optional[object]]:
     ops["translate"](np.zeros((1, 8), np.int32), enc)
     logger.info("encode %s, ctc_logits %s", enc.shape,
                 ops["ctc_logits"](enc).shape)
+    asr_engine.decode_phones([enc])
     vad_frame = vad_engine.frame_input if vad_engine is not None else 80
     ops["vad"](np.zeros((1, 10, vad_frame), np.float32))
 

@@ -3,6 +3,7 @@ chunk-streaming ChunkConformer.
 
     python -m tensorflowasr_tpu_torch.cli.train_asr --data_config D.yml \\
         --model_config M.yml [--total_steps N] [--data_workers N] \\
+        [--data_procs N] \\
         [--device cuda|cpu] [--compute_dtype float32|bfloat16]
 
 Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: dispatches on
@@ -12,7 +13,8 @@ dataloader, anything else -> ``CTCTrainer``, which with
 chunk-quantised lengths), resumes from the newest
 checkpoint under ``running_config.outdir``/checkpoints when there is one,
 trains ``--total_steps`` steps, logs to ``metrics.jsonl`` and saves at the
-configured intervals. ``--data_procs`` > 0 is not ported yet and raises.
+configured intervals. ``--data_procs N`` > 0 makes the batches in N worker
+processes (``data/mp_prefetch.py``), each over its shard of the train list.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ import sys
 
 from tensorflowasr_tpu_torch.cli.common import (
     add_training_flags,
+    am_batch_stream,
+    chunk_batch_stream,
     chunk_setup,
     config_parser,
     load_config,
+    make_train_iter,
     model_name,
     offline_ctc_setup,
 )
@@ -36,11 +41,15 @@ def main(argv=None) -> int:
     config = load_config(args)
     if model_name(config) == "ChunkConformer":
         dl, trainer = chunk_setup(args, config, args.compute_dtype)
+        stream = chunk_batch_stream
     else:
         dl, trainer, _ = offline_ctc_setup(args, config, args.compute_dtype)
+        stream = am_batch_stream
     trainer.restore()
-    train_iter = dl.generator(train=True, num_workers=args.data_workers,
-                              prefetch_depth=2 if args.data_workers else 0)
+    train_iter = make_train_iter(
+        args, lambda: dl.generator(train=True, num_workers=args.data_workers,
+                                   prefetch_depth=2 if args.data_workers
+                                   else 0), stream)
     try:
         trainer.fit(train_iter, eval_iter=dl.generator(train=False),
                     total_steps=args.total_steps)

@@ -5,38 +5,68 @@ Counterpart of ``tensorflowasr_tpu/serve/engines.py`` (``ASREngine``,
 ``tensorflowasr_tpu/train/asr_trainer.py``. Chunk and utterance lengths are
 padded to the same small set of shapes as in the JAX package, so both
 produce the same ids from the same weights. Every engine runs under
-``torch.no_grad`` and returns numpy. The beam and n-gram LM decoders are not
-ported yet and raise.
+``torch.no_grad`` and returns numpy. The phones are decoded greedily, or
+with the CTC prefix beam search (``ops/beam.py``) and optional n-gram shallow
+fusion (``utils/ngram_lm.py``) when ``beam_width > 0``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tensorflowasr_tpu_torch.models.conformer import ConformerCTC
+from tensorflowasr_tpu_torch.ops.beam import ctc_beam_search_decode
 from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 TRANSLATOR_PAD = 10     # zero phones appended before the translator
 
 
+PhoneDecoder = Callable[[torch.Tensor, torch.Tensor],
+                        Tuple[torch.Tensor, torch.Tensor]]
+
+
+def phone_decoder(blank_id: int, num_classes: int, beam_width: int = 0,
+                  ngram_lm=None, lm_weight: float = 0.3) -> PhoneDecoder:
+    """(CTC logits [B, T, V], lengths [B]) -> (phone ids [B, T], lengths
+    [B]): greedy with ``beam_width`` 0; else the best beam of the CTC prefix
+    beam search over the top ``min(16, num_classes)`` phones a frame, with
+    ``ngram_lm`` (a ``utils/ngram_lm.py::DeviceNGramLM`` on the logits'
+    device) fused at ``lm_weight`` when given."""
+    if not beam_width or beam_width <= 0:
+        return lambda logits, lengths: ctc_greedy_decode(
+            logits, lengths, blank_id=blank_id)
+
+    def decode(logits, lengths):
+        prefixes, lens, _ = ctc_beam_search_decode(
+            logits, lengths, blank_id=blank_id, beam_width=beam_width,
+            prune_k=min(16, num_classes), ngram_lm=ngram_lm,
+            lm_weight=lm_weight)
+        return prefixes[:, 0], lens[:, 0]
+
+    return decode
+
+
 @torch.no_grad()
 def predict_step(model: ConformerCTC, wav: torch.Tensor,
                  input_length: torch.Tensor,
-                 blank_id: Optional[int] = None
+                 blank_id: Optional[int] = None,
+                 decode: Optional[PhoneDecoder] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(wav [B, T], input_length [B]) -> (phone ids [B, T'], phone lengths
-    [B], char ids [B, T' + 10]): encode, CTC logits, greedy decode, pad the
-    decoded phones with 10 zeros, translate, argmax."""
+    [B], char ids [B, T' + 10]): encode, CTC logits, decode the phones
+    (``decode``, a :func:`phone_decoder`; greedy by default), pad them with
+    10 zeros, translate, argmax."""
     if blank_id is None:
         blank_id = model.num_phone_classes - 1
+    if decode is None:
+        decode = phone_decoder(blank_id, model.num_phone_classes)
     enc = model.encode(wav)
     logits = model.ctc_logits(enc)
-    phone_ids, phone_lens = ctc_greedy_decode(logits, input_length,
-                                              blank_id=blank_id)
+    phone_ids, phone_lens = decode(logits, input_length)
     padded = torch.nn.functional.pad(phone_ids, (0, TRANSLATOR_PAD))
     char_logits = model.translate(padded, enc)
     char_ids = torch.argmax(char_logits, dim=-1).to(torch.int32)
@@ -48,16 +78,17 @@ class ASREngine:
 
     ``extract_feature`` pads a wav chunk to ``chunk_samples`` (one shape);
     ``decode`` pads the concatenated encoder outputs to the next multiple
-    of ``pad_chunks`` chunks, then runs CTC greedy + the translator.
+    of ``pad_chunks`` chunks, then decodes the phones (greedy, or with
+    ``beam_width > 0`` the CTC prefix beam search over the top
+    ``min(16, n_phone)`` phones a frame, with ``ngram_lm``, a
+    ``utils/ngram_lm.py::DeviceNGramLM`` on the model's device, fused at
+    ``lm_weight``) and runs the translator.
     """
 
     def __init__(self, model: ConformerCTC, chunk_seconds: float = 0.5,
                  sample_rate: int = 16000, text_featurizer=None,
                  phone_featurizer=None, pad_chunks: int = 4,
-                 beam_width: int = 0, ngram_lm=None):
-        if beam_width or ngram_lm is not None:
-            raise NotImplementedError(
-                "beam search and the n-gram LM are not ported yet")
+                 beam_width: int = 0, ngram_lm=None, lm_weight: float = 0.3):
         self.model = model
         self.device = next(model.parameters()).device
         self.sample_rate = sample_rate
@@ -70,6 +101,9 @@ class ASREngine:
         self.text_featurizer = text_featurizer
         self.phone_featurizer = phone_featurizer
         self.pad_chunks = pad_chunks
+        self._decode_phones = phone_decoder(
+            self.blank, model.num_phone_classes, beam_width, ngram_lm,
+            lm_weight)
 
     @torch.no_grad()
     def extract_feature(self, audio: np.ndarray) -> np.ndarray:
@@ -100,7 +134,7 @@ class ASREngine:
             enc_t = torch.from_numpy(buf).to(self.device)
             length = torch.tensor([t], dtype=torch.int32, device=self.device)
             logits = self.model.ctc_logits(enc_t)
-            ids, lens = ctc_greedy_decode(logits, length, blank_id=self.blank)
+            ids, lens = self._decode_phones(logits, length)
             padded = torch.nn.functional.pad(ids, (0, TRANSLATOR_PAD))
             char_ids = torch.argmax(self.model.translate(padded, enc_t), -1)
         return ids.cpu().numpy(), lens.cpu().numpy(), char_ids.cpu().numpy()

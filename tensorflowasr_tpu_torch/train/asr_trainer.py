@@ -14,8 +14,7 @@ Batch dict (all static shapes, the loader's buckets pad them):
   wav [B, T] f32 or i16, input_length [B] i32 (encoder frames),
   phones [B, L] i32, phone_length [B] i32, chars [B, U] i32.
 
-Data parallelism over several cards comes with the parallelism slice;
-beam-search prediction (``make_beam_predict_step``) is not ported yet.
+Data parallelism over several cards comes with the parallelism slice.
 """
 
 from __future__ import annotations
@@ -171,6 +170,28 @@ def make_predict_step(blank_id: int) -> Callable:
         if model.training:
             model.eval()
         return engines.predict_step(model, wav, input_length, blank_id)
+
+    return step
+
+
+def make_beam_predict_step(model: ConformerCTC, blank_id: int,
+                           beam_width: int = 8, ngram_lm=None,
+                           lm_weight: float = 0.3) -> Callable:
+    """:func:`make_predict_step` with the CTC prefix beam search in place of
+    the greedy decode (``ops/beam.py``; the best beam, over the top
+    ``min(16, V)`` phones a frame, f32 log-softmax) and, with ``ngram_lm``
+    (a ``utils/ngram_lm.py::DeviceNGramLM`` on the model's device), n-gram
+    shallow fusion at ``lm_weight``. ``model`` gives the phone classes; the
+    step runs ``state.model``."""
+    decode = engines.phone_decoder(blank_id, model.num_phone_classes,
+                                   beam_width, ngram_lm, lm_weight)
+
+    def step(state: ASRTrainState, wav, input_length):
+        model = state.model
+        if model.training:
+            model.eval()
+        return engines.predict_step(model, wav, input_length, blank_id,
+                                    decode)
 
     return step
 

@@ -140,5 +140,10 @@ class ASRTrainState:
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"].cpu())
+        saved = state["generator"].cpu()
+        # a checkpoint written on another kind of device (the card's Philox
+        # state against the CPU's Mersenne Twister) cannot continue its
+        # dropout stream here: the seeded generator stays
+        if saved.numel() == self.generator.get_state().numel():
+            self.generator.set_state(saved)
         self.step = int(state["step"])

@@ -580,14 +580,14 @@ def test_serve_model_refuses_unported_options(tmp_path):
 
     base = ["--data_config", "unused.yml", "--model_config", "unused.yml",
             "--device", "cpu"]
-    for extra in (["--beam_width", "4"], ["--lm", "lm.npz"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the beam and the LM are ported (tests/test_torch_lm_cli.py serves
+    # with them), and so are the VAD configs (tests/test_torch_stream_
+    # session.py): no refusal, the missing config file is what fails
+    for extra in (["--beam_width", "4"], ["--lm", "lm.npz"],
+                  ["--vad_data_config", "v.yml", "--vad_model_config",
+                   "vm.yml"]):
+        with pytest.raises(FileNotFoundError, match="unused.yml"):
             main(base + extra)
-    # the VAD configs are ported (tests/test_torch_stream_session.py serves
-    # with them): no refusal, the missing config file is what fails
-    with pytest.raises(FileNotFoundError, match="unused.yml"):
-        main(base + ["--vad_data_config", "v.yml", "--vad_model_config",
-                     "vm.yml"])
 
 
 def test_serve_model_cuda_without_cuda_raises(tmp_path):

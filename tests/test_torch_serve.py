@@ -175,12 +175,18 @@ def test_engine_and_offline_session_match_jax():
 
 
 def test_unported_serving_options_raise():
-    """The beam decoder still raises; a VAD and a punctuation engine are
-    ported (tests/test_torch_stream_session.py holds them to JAX's), so
-    the session takes both: VAD segments, punctuation on each text."""
-    _, _, tmodel = pair(11, 17)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ASREngine(tmodel, beam_width=4)
+    """Every serving option is ported now. The beam decoder (``beam_width``)
+    gives JAX's beam engine's phones (tests/test_torch_lm_cli.py holds it
+    with an n-gram LM); a VAD and a punctuation engine are ported
+    (tests/test_torch_stream_session.py holds them to JAX's), so the
+    session takes both: VAD segments, punctuation on each text."""
+    jmodel, variables, tmodel = pair(11, 17)
+    beam = ASREngine(tmodel, beam_width=4, text_featurizer=Vocab(17))
+    jbeam = JASREngine(jmodel, variables, text_featurizer=Vocab(17),
+                       beam_width=4)
+    encs = [jbeam.extract_feature(speech(0.48, seed=s)) for s in (7, 8)]
+    assert beam.decode_phones(encs) == jbeam.decode_phones(encs)
+    assert beam.decode_phones(encs)
     eng = ASREngine(tmodel, text_featurizer=Vocab(17))
 
     class EnergyVAD:

@@ -720,19 +720,32 @@ def test_eval_cli_scores_in_f32_as_jax(configs, capsys, monkeypatch):
     assert got["phone_N"] == 16 and got["char_N"] == 8
 
 
-def test_cli_refuses_what_is_not_ported(configs):
+def test_cli_refuses_what_is_not_ported(configs, capsys):
+    """Nothing these CLIs take is refused any more: ``--data_procs`` trains
+    from worker processes (tests/test_torch_prefetch.py), ``--lm`` and
+    ``--word_lm`` score with the beam and the LM (tests/test_torch_lm_cli.py
+    holds them to JAX's)."""
     tmp_path, data_yml, model_yml, model_cfg = configs
     from tensorflowasr_tpu_torch.cli.eval_am import main as eval_main
     from tensorflowasr_tpu_torch.cli.train_asr import main as train_main
+    from tensorflowasr_tpu_torch.cli.train_lm import main as train_lm
 
     common = ["--data_config", data_yml, "--model_config", model_yml,
               "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_main(common + ["--data_procs", "2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eval_main(common + ["--lm", "lm.npz"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eval_main(common + ["--word_lm", "lm.arpa"])
+    assert train_main(common + ["--data_procs", "2", "--total_steps", "1",
+                                "--compute_dtype", "float32"]) == 0
+    lm = str(tmp_path / "lm.npz")
+    assert train_lm(["--data_config", data_yml, "--order", "2",
+                     "--output", lm]) == 0
+    words = tmp_path / "words.arpa"
+    words.write_text("\\data\\\nngram 1=2\nngram 2=1\n\n\\1-grams:\n"
+                     "-0.5\tni3\t-0.3\n-0.5\thao3\t-0.3\n\n\\2-grams:\n"
+                     "-0.1\tni3 hao3\n\n\\end\\\n", encoding="utf-8")
+    capsys.readouterr()
+    for extra in (["--lm", lm], ["--word_lm", str(words)]):
+        assert eval_main(common + extra + ["--max_batches", "1"]) == 0
+        result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert result["phone_N"] == 8
     # the chunk model's vectorized decoder phase is ported: with it set,
     # the chunk model trains (a step, as far as this test goes)
     chunk = dict(model_cfg["model_config"], name="ChunkConformer",
