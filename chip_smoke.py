@@ -1,8 +1,9 @@
 """Drive the PyTorch port's offline ConformerCTC(S) serving and training
 paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
 socket model server, its VAD and punctuation serving and training, its
-block-streaming ConformerCTC and its CTC prefix beam search with n-gram
-shallow fusion on one CUDA card, and check them.
+block-streaming ConformerCTC, its CTC prefix beam search with n-gram
+shallow fusion, the LEAF and ``add_wav_info`` options, its export through
+``torch.export`` and its RNN-T loss on one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -240,6 +241,27 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``ASREngine`` on the CPU; ``cli.train_asr --data_procs 2`` and
              ``0`` for 3 steps each, finite losses, steps/s side by side (the
              workers hide the card and fail if CUDA starts in them).
+21. leaf_wav_export - (a) ``add_wav_info: true`` and (b) ``mel_layer_type:
+             leaf`` on the full-width ConformerCTC(S) (seeded): f32
+             ``predict_step`` at B=128 x 7 s, median of 5, in turns with
+             the plain model's (5 calls before and 5 after), with the
+             ``wav_layer``'s, LEAF's and PCEN's CUDA-event share of one step
+             and the peak memory; a warm and 2 timed f32 train steps at
+             B=32 x 8 s with finite losses; the encoder, loss and gradient
+             norm on the card against the CPU on B=2 x 1 s (1e-3, 1e-4 and
+             1e-3 relative); K1 and K1b once a call with add_wav_info,
+             never with LEAF. (c) ``export_offline_asr`` of phase 16's
+             calibrated ConformerCTC(S) checkpoint and
+             ``export_chunk_streaming`` of its ChunkConformer(S) checkpoint
+             on the card, loaded back (``load_exported``): the encoder and
+             the picker each hold one ``tasr::log_mel_spectrogram`` node and
+             launch K1 and K1b once a call; encoder, ctc_model and
+             translator at B=1 x 7 s, and the picker and decoder threaded
+             over 10 chunks, within rtol 1e-4 / atol 1e-4 of the eager
+             models (n_final equal); export and load wall times. (d)
+             ``rnnt_loss`` and its gradient at B=8, T=200, U=40, V=256 on
+             the card against the CPU (1e-4 relative, 1e-4 of the largest
+             gradient entry), timed forward and backward.
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
@@ -248,9 +270,11 @@ CLI call, each dtype's chunk train steps, the three chunk train CLI calls,
 the model server's served window, the VAD and punctuation phase's timed
 sessions and files, the VAD and punctuation training phase (which must
 launch neither), the block-streaming phase's predict, train, CLI and
-session calls and the beam phase's predict calls, ``eval_am --lm``, served
-encodes and train steps, and read just after each; all but the training of
-VAD and punctuation must have launched both. K1b counts one launch a
+session calls, the beam phase's predict calls, ``eval_am --lm``, served
+encodes and train steps, and each of the last phase's predict and train
+windows and loaded-graph calls, and read just after each; all but the
+training of VAD and punctuation and the LEAF branch must have launched
+both. K1b counts one launch a
 log-mel (the launch that writes it); K1 counts every launch of the FFT
 kernel, in any epilogue: two a 'same' log-mel (the max pass and the log-mel
 pass), one a 'valid' one. Where a phase knows its number of frontend calls
@@ -258,8 +282,9 @@ it must be exact. The stage breakdowns and the card-vs-CPU checks run
 outside those windows. K1's times at the request and the train shape go on
 ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel phase.
 The last lines are a JSON line of kernel numbers (K1's times at the serve
-shape, with the request, train, cli and the 'valid' shapes beside them and
-the largest error over all shapes; K1b's the same way), then ``{"ok":
+shape, with the request, train, cli and the 'valid' shapes beside them, the
+largest error over all shapes and the launches inside loaded exported
+graphs; K1b's the same way), then ``{"ok":
 true, "device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
@@ -3946,6 +3971,418 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LEAF and add_wav_info, export through torch.export, rnnt_loss
+# ---------------------------------------------------------------------------
+
+OPTION_B, OPTION_SECONDS = 128, 7.0          # predict_step, as phase_serve
+OPTION_TRAIN_B = 32                          # x TRAIN_SECONDS (8 s)
+OPTION_TRAIN_STEPS = 3                       # a warm step and 2 timed
+EXPORT_CHUNKS = 10
+EXPORT_DECODER_STEP = 4                      # the picker's frames a chunk
+# a loaded program against the eager model it was exported from, on the
+# same card: the same aten ops, which may pick other kernels
+EXPORT_TOL = dict(rtol=1e-4, atol=1e-4)
+RNNT_SHAPE = (8, 200, 40, 256)               # B, T, U, V
+
+
+def option_trainer(option: dict, device: str, dropout: bool = True):
+    """The full-width f32 ``CTCTrainer`` (seed 0) with ``option`` in its
+    ``speech_config``; dropout 0 where ``dropout`` is off."""
+    extra = {"speech_config": option}
+    if not dropout:
+        extra["model_config"] = {"dropout": 0.0, "ctcdecoder_dropout": 0.0,
+                                 "translator_dropout": 0.0}
+    return new_trainer("float32", device, extra=extra)
+
+
+def predict_times(model, wav, length, reps: int) -> list:
+    """A checked warm ``predict_step``, then ``reps`` waited for (s)."""
+    from tensorflowasr_tpu_torch.serve.engines import predict_step
+
+    t_enc = -(-(-(-wav.shape[1] // 160)) // 4)
+    out = predict_step(model, wav, length)
+    torch.cuda.synchronize()
+    check_outputs(out, wav.shape[0], t_enc)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = predict_step(model, wav, length)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check_outputs(out, wav.shape[0], t_enc)
+    return times
+
+
+def module_shares(model, wav, length, modules: dict) -> dict:
+    """CUDA-event ms of each module in ``modules`` (name -> submodule)
+    inside one ``predict_step``, beside the step's own ms."""
+    from tensorflowasr_tpu_torch.serve.engines import predict_step
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    spans, hooks = {}, []
+
+    def enter(name):
+        def hook(mod, args):
+            spans[name] = [event()]
+        return hook
+
+    def leave(name):
+        def hook(mod, args, out):
+            spans[name].append(event())
+        return hook
+
+    for name, m in modules.items():
+        hooks.append(m.register_forward_pre_hook(enter(name)))
+        hooks.append(m.register_forward_hook(leave(name)))
+    try:
+        start = event()
+        predict_step(model, wav, length)
+        end = event()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {name: round(a.elapsed_time(b), 4) for name, (a, b) in
+           spans.items()}
+    out["predict_step"] = round(start.elapsed_time(end), 4)
+    return out
+
+
+def option_card_vs_cpu(option: dict, what: str) -> None:
+    """The encoder (eval) and one loss + backward (train, dropout 0) of the
+    same seeded model on B = 2 x 1 s on the card and on the CPU: encoder
+    within 1e-3, loss within 1e-4 relative, the gradient's global norm
+    within 1e-3 relative."""
+    from tensorflowasr_tpu_torch.train.asr_trainer import loss_and_metrics
+
+    small = train_batch(2, 1.0, 8, 4)
+    result = {}
+    for device in ("cuda", "cpu"):
+        t = option_trainer(option, device, dropout=False)
+        m = t.state.model
+        b = t._prepare_batch(small)
+        with torch.no_grad():
+            enc = m.eval().encode(b["wav"]).cpu()
+        total, _ = loss_and_metrics(m.train(), b, t.blank_id)
+        total.backward()
+        norm = torch.linalg.vector_norm(torch.stack(
+            [p.grad.double().norm() for p in m.parameters()]))
+        result[device] = (enc, float(total.detach()), float(norm))
+    enc_err = within(result["cuda"][0], result["cpu"][0], rtol=0, atol=1e-3)
+    (_, lg, ng), (_, lc, nc) = result["cuda"], result["cpu"]
+    loss_err, norm_err = abs(lg - lc) / abs(lc), abs(ng - nc) / nc
+    log(f"leaf_wav_export: {what} f32 card vs CPU on B=2 x 1 s, dropout 0: "
+        f"encoder max|err| {enc_err:.3e}; train_loss {lg:.6f} vs {lc:.6f} "
+        f"(relative {loss_err:.3e}), gradient norm {ng:.6f} vs {nc:.6f} "
+        f"(relative {norm_err:.3e})")
+    if not (math.isfinite(lg) and loss_err <= 1e-4 and norm_err <= 1e-3):
+        raise AssertionError(f"{what}: the train step on the card disagrees "
+                             "with the CPU")
+
+
+def option_part(option: dict, what: str, plain, reps: int) -> tuple:
+    """(a) / (b): ``predict_step`` f32 at B = 128 x 7 s, median of
+    ``reps``, in turns with the plain ConformerCTC(S) ``plain``; the
+    modules' share of one step; 3 train steps at B = 32 x 8 s; the card
+    against the CPU; with LEAF a trace of one predict and one train step.
+    Returns K1's and K1b's launches in the predict and train calls (one
+    each a call with ``add_wav_info``, none with LEAF)."""
+    from tensorflowasr_tpu_torch.serve.engines import predict_step
+    from tensorflowasr_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    trainer = option_trainer(option, "cuda")
+    model, cfg = trainer.state.model.eval(), trainer.model_cfg
+    if (cfg.dmodel, cfg.num_blocks) != (144, 13) or any(
+            getattr(cfg, k) != v for k, v in option.items()):
+        raise AssertionError(f"not the full-width {what} config: {cfg}")
+    wav, length = batch_inputs(OPTION_B, OPTION_SECONDS, dev)
+    torch.cuda.reset_peak_memory_stats()
+    plain_times = predict_times(plain, wav, length, reps)
+    times, n_pred = counted(lambda: predict_times(model, wav, length, reps))
+    plain_times += predict_times(plain, wav, length, reps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step, base = statistics.median(times), statistics.median(plain_times)
+    log(f"leaf_wav_export: {what} predict_step f32 B={OPTION_B} x "
+        f"{OPTION_SECONDS} s: median {step * 1e3:.3f} ms (min "
+        f"{min(times) * 1e3:.3f}) against the plain ConformerCTC(S)'s "
+        f"{base * 1e3:.3f} ms (min {min(plain_times) * 1e3:.3f}; {reps} "
+        f"calls before and {reps} after), {step / base:.2f}x; per-stream "
+        f"RTF {step / (OPTION_B * OPTION_SECONDS):.3e}; peak memory "
+        f"{peak:.2f} GiB [{CARD}]")
+    enc = model.encoder
+    modules = ({"wav_layer": enc.wav_layer} if enc.wav_layer is not None
+               else {"leaf": enc.mel_layer.leaf,
+                     "PCEN": enc.mel_layer.leaf.pcen})
+    shares = module_shares(model, wav, length, modules)
+    log(f"leaf_wav_export: {what} CUDA-event ms in one predict_step: "
+        f"{json.dumps(shares)}; "
+        + ", ".join(f"{name} {shares[name] / shares['predict_step']:.1%}"
+                    for name in modules) + f" of the step [{CARD}]")
+    leaf = enc.wav_layer is None
+    if leaf:
+        trace(lambda: predict_step(model, wav, length), 1,
+              f"leaf_wav_export: leaf predict_step f32 B={OPTION_B} x "
+              f"{OPTION_SECONDS} s [{CARD}]", "call", 6)
+    del wav, length
+
+    numpy_batch = train_batch(OPTION_TRAIN_B, TRAIN_SECONDS, TRAIN_PHONES,
+                              TRAIN_CHARS)
+    batch = trainer._prepare_batch(numpy_batch)
+    torch.cuda.reset_peak_memory_stats()
+    (med, low, losses), n_train = counted(lambda: timed_steps(
+        trainer.train_step, trainer.state, batch, OPTION_TRAIN_STEPS - 1))
+    audio_s = OPTION_TRAIN_B * TRAIN_SECONDS
+    log(f"leaf_wav_export: {what} train_step f32 B={OPTION_TRAIN_B} x "
+        f"{TRAIN_SECONDS} s, dropout {cfg.dropout}: median {med:.3f} ms "
+        f"(min {low:.3f}; {OPTION_TRAIN_STEPS - 1} steps after a warm one, "
+        f"each waited for), {audio_s / med * 1e3:.1f} audio s/s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"train_loss {' -> '.join(f'{v:.4f}' for v in losses)} [{CARD}]")
+    if leaf:
+        trace(lambda: trainer.train_step(trainer.state, batch), 1,
+              f"leaf_wav_export: leaf train_step f32 B={OPTION_TRAIN_B} x "
+              f"{TRAIN_SECONDS} s [{CARD}]", "step", 6)
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    option_card_vs_cpu(option, what)
+    return add(n_pred, n_train), reps + 1 + OPTION_TRAIN_STEPS
+
+
+def frontend_nodes(call) -> list:
+    """The ``tasr::`` calls in a graph that ``load_exported`` loaded."""
+    return [str(n.target) for n in call.program.graph.nodes
+            if n.op == "call_function" and str(n.target).startswith("tasr.")]
+
+
+def export_part(cli_dir: str, chunk_dir: str) -> tuple:
+    """(c): the cli phase's calibrated ConformerCTC(S) checkpoint through
+    ``export_offline_asr`` and the chunk train CLI's ChunkConformer(S)
+    checkpoint through ``export_chunk_streaming``, on the card, loaded
+    back in this process and run against the eager models. Returns K1's
+    and K1b's launches in the loaded graphs, with the number of encoder and
+    picker calls."""
+    from tensorflowasr_tpu_torch.cli.common import build_featurizers
+    from tensorflowasr_tpu_torch.export import exporter
+    from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device("cuda")
+    config = UserConfig(os.path.join(cli_dir, "data.yml"),
+                        os.path.join(root, "configs", "conformerS.yml"))
+    phone_f, char_f = build_featurizers(config)[:2]
+    trainer = CTCTrainer(config, phone_f.num_classes, char_f.num_classes,
+                         blank_id=phone_f.blank, device="cuda")
+    ctrainer = ChunkTrainer(
+        UserConfig(os.path.join(chunk_dir, "data.yml"),
+                   os.path.join(root, "configs", "chunk_conformerS.yml")),
+        phone_f.num_classes, char_f.num_classes, device="cuda")
+    for t in (trainer, ctrainer):
+        t.init_state()
+        if not t.restore():
+            raise AssertionError(f"no checkpoint under {t.outdir}")
+    model, cmodel = trainer.state.model.eval(), ctrainer.state.model.eval()
+
+    # offline: encoder, ctc_model, translator at JAX's example shapes
+    out_dir = os.path.join(cli_dir, "export_offline")
+    t0 = time.perf_counter()
+    exporter.export_offline_asr(model, out_dir)          # B=1 x 7 s, U 64
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs = exporter.load_exported(out_dir)
+    t_load = time.perf_counter() - t0
+    nodes = {name: frontend_nodes(call) for name, call in graphs.items()}
+    if nodes != {"encoder": ["tasr.log_mel_spectrogram.default"],
+                 "ctc_model": [], "translator": []}:
+        raise AssertionError(f"tasr:: nodes in the offline graphs: {nodes}")
+    wav = tones(7.0, seed=70)[None]
+    enc, n_enc = counted(lambda: graphs["encoder"](wav))
+    launches = expect(n_enc, 1, "the exported encoder's call")
+    ids = np.random.default_rng(71).integers(
+        0, phone_f.num_classes, (1, 64)).astype(np.int32)
+    (logits, chars), n_heads = counted(lambda: (
+        graphs["ctc_model"](enc), graphs["translator"](ids, enc)))
+    if n_heads != (0, 0):
+        raise AssertionError(f"the heads launched the frontend {n_heads}")
+    with torch.no_grad():
+        enc_live = model.encode(torch.from_numpy(wav).to(dev))
+        live = (enc_live, model.ctc_logits(enc_live),
+                model.translate(torch.from_numpy(ids).to(dev), enc_live))
+    errs = [within(torch.from_numpy(got), want.cpu(), **EXPORT_TOL)
+            for got, want in zip((enc, logits, chars), live)]
+    log(f"leaf_wav_export: export_offline_asr of the calibrated "
+        f"ConformerCTC(S) checkpoint on the card in {t_export:.2f} s, "
+        f"load_exported {t_load:.2f} s; the encoder graph holds "
+        f"{nodes['encoder']}; loaded vs eager at B=1 x 7 s: max|err| "
+        f"encoder {errs[0]:.3e}, ctc_model {errs[1]:.3e}, translator "
+        f"{errs[2]:.3e}; K1 and K1b launched {n_enc} by one encoder call")
+
+    # chunk: picker and decoder threaded over EXPORT_CHUNKS chunks
+    out_dir = os.path.join(chunk_dir, "export_chunk")
+    t0 = time.perf_counter()
+    exporter.export_chunk_streaming(cmodel, out_dir,
+                                    decoder_step=EXPORT_DECODER_STEP)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graphs = exporter.load_exported(out_dir)
+    t_load = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    nodes = {name: frontend_nodes(call) for name, call in graphs.items()}
+    if nodes != {"picker": ["tasr.log_mel_spectrogram.default"],
+                 "decoder": []}:
+        raise AssertionError(f"tasr:: nodes in the chunk graphs: {nodes}")
+    cs = cmodel.cfg.chunk_samples
+    stream = tones(EXPORT_CHUNKS * cs / SR, seed=72)[None]
+    pk_keys, dec_keys = (manifest["picker_cache_keys"],
+                         manifest["decoder_cache_keys"])
+    flat = [v.cpu().numpy() for v in map(cmodel.init_picker_caches(1).get,
+                                         pk_keys)]
+
+    def thread(flat):
+        """Each call's new caches feed the next."""
+        outs = []
+        for i in range(EXPORT_CHUNKS):
+            outs.append(graphs["picker"](stream[:, i * cs:(i + 1) * cs],
+                                         *flat))
+            flat = outs[-1][3:]
+        return outs
+
+    outs, n_pick = counted(lambda: thread(flat))
+    expect(n_pick, EXPORT_CHUNKS, f"{EXPORT_CHUNKS} exported picker calls")
+    launches = add(launches, n_pick)
+    caches, worst, picked = cmodel.init_picker_caches(1), 0.0, []
+    with torch.no_grad():
+        for i, out in enumerate(outs):
+            chunk = torch.from_numpy(stream[:, i * cs:(i + 1) * cs]).to(dev)
+            lg, hid, nf, caches = cmodel.picker_stream_step(chunk, caches)
+            if not np.array_equal(out[2], nf.cpu().numpy()):
+                raise AssertionError(f"chunk {i}: n_final {out[2]} vs "
+                                     f"{nf.cpu().numpy()}")
+            for got, want in [(out[0], lg), (out[1], hid)] + [
+                    (g, caches[k]) for k, g in zip(pk_keys, out[3:])]:
+                if got.shape != tuple(want.shape):
+                    raise AssertionError(f"chunk {i}: shape {got.shape} vs "
+                                         f"{tuple(want.shape)}")
+                if want.numel():          # a ring of lookahead 0 is empty
+                    worst = max(worst, within(
+                        torch.from_numpy(got).float(), want.cpu().float(),
+                        **EXPORT_TOL))
+            picked.append(hid[:, -EXPORT_DECODER_STEP:].cpu().numpy())
+    dflat = [v.cpu().numpy() for v in map(cmodel.init_decoder_caches(1).get,
+                                          dec_keys)]
+    dcaches, dworst = cmodel.init_decoder_caches(1), 0.0
+    for x in picked:
+        out = graphs["decoder"](x, *dflat)
+        dflat = out[3:]
+        with torch.no_grad():
+            want = cmodel.decoder_stream_step(torch.from_numpy(x).to(dev),
+                                              dcaches)
+        dcaches = want[3]
+        for got, w in zip(out[:3], want[:3]):
+            dworst = max(dworst, within(torch.from_numpy(got).float(),
+                                        w.cpu().float(), **EXPORT_TOL))
+    log(f"leaf_wav_export: export_chunk_streaming of the chunk train CLI's "
+        f"ChunkConformer(S) checkpoint on the card in {t_export:.2f} s, "
+        f"load_exported {t_load:.2f} s; the picker graph holds "
+        f"{nodes['picker']}; {EXPORT_CHUNKS} chunks threaded through the "
+        f"loaded picker ({len(pk_keys)} caches) and decoder ({len(dec_keys)}"
+        f" caches) vs eager: max|err| picker {worst:.3e} (logits, hidden, "
+        f"caches; n_final equal), decoder {dworst:.3e}; K1 and K1b launched "
+        f"{n_pick} by {EXPORT_CHUNKS} picker calls")
+    return launches, 1 + EXPORT_CHUNKS
+
+
+def rnnt_part() -> None:
+    """(d): ``rnnt_loss`` and its gradient on the card against the CPU, the
+    card's time a call (forward and backward) and one trace of it."""
+    from tensorflowasr_tpu_torch.ops.rnnt import rnnt_loss
+    from tensorflowasr_tpu_torch.utils.profiling import trace
+
+    b, t, u, v = RNNT_SHAPE
+    rng = np.random.default_rng(80)
+    logits = rng.standard_normal((b, t, u + 1, v)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(1, v, (b, u)).astype(np.int64))
+    t_lens = torch.tensor([200, 180, 150, 200, 120, 199, 60, 1])
+    u_lens = torch.tensor([40, 35, 20, 40, 30, 39, 10, 0])
+    result, times = {}, []
+    for device in ("cuda", "cpu"):
+        for _ in range(4 if device == "cuda" else 1):
+            x = torch.from_numpy(logits).to(device).requires_grad_()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = rnnt_loss(x, labels.to(device), t_lens.to(device),
+                             u_lens.to(device))
+            loss.sum().backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        result[device] = (loss.detach().cpu(), x.grad.cpu())
+    loss_err = within(result["cuda"][0], result["cpu"][0], rtol=1e-4,
+                      atol=0)
+    scale = float(result["cpu"][1].abs().max())
+    grad_err = within(result["cuda"][1], result["cpu"][1], rtol=0,
+                      atol=1e-4 * scale)
+    card = times[1:4]
+    x = torch.from_numpy(logits).to("cuda").requires_grad_()
+    args = [a.to("cuda") for a in (labels, t_lens, u_lens)]
+    trace(lambda: rnnt_loss(x, *args).sum().backward(), 1,
+          f"leaf_wav_export: rnnt_loss forward + backward [{CARD}]", "call",
+          4)
+    log(f"leaf_wav_export: rnnt_loss [B, T, U+1, V] = [{b}, {t}, {u + 1}, "
+        f"{v}] card vs CPU: loss max|err| {loss_err:.3e} (losses "
+        f"{float(result['cpu'][0].min()):.2f}-"
+        f"{float(result['cpu'][0].max()):.2f}, within 1e-4 relative), "
+        f"gradient max|err| {grad_err:.3e} (within 1e-4 of its largest "
+        f"entry {scale:.3e}); forward + backward on the card median "
+        f"{statistics.median(card) * 1e3:.3f} ms (min {min(card) * 1e3:.3f};"
+        f" {t + u} anti-diagonals) [{CARD}]")
+
+
+def phase_leaf_wav_export(cli_dir: str, chunk_dir: str,
+                          reps: int = 5) -> tuple:
+    """(a) ``add_wav_info: true`` and (b) ``mel_layer_type: leaf`` on the
+    full-width ConformerCTC(S); (c) the offline and chunk export round trip
+    on the card; (d) ``rnnt_loss``. K1 and K1b are counted exactly: once a
+    predict, train and exported encoder or picker call with add_wav_info
+    and in the exported graphs, never on the LEAF branch. Returns the
+    launches of (a) and (c), and those of the exported graphs alone."""
+    from tensorflowasr_tpu_torch.models.conformer import (
+        ConformerConfig,
+        build_model,
+    )
+
+    t_phase = time.perf_counter()
+    plain = build_model(ConformerConfig(), N_PHONE, N_CHAR, device="cuda",
+                        seed=0)
+    n, calls = option_part({"add_wav_info": True}, "add_wav_info", plain,
+                           reps)
+    launches = expect(n, calls, f"{calls} add_wav_info predict and train "
+                                f"calls")
+    n, leaf_calls = option_part({"mel_layer_type": "leaf"}, "leaf", plain,
+                                reps)
+    if n != (0, 0):
+        raise AssertionError(f"the LEAF branch launched K1 and K1b {n}")
+    del plain
+    torch.cuda.empty_cache()
+    exported, calls = export_part(cli_dir, chunk_dir)
+    expect(exported, calls, "the exported graphs' encoder and picker calls")
+    rnnt_part()
+    log(f"leaf_wav_export: K1 and K1b launched {add(launches, exported)} "
+        f"({launches} with add_wav_info, {exported} in the loaded graphs, "
+        f"(0, 0) in the LEAF branch's {leaf_calls} predict and train "
+        f"calls); phase {time.perf_counter() - t_phase:.2f} s")
+    return add(launches, exported), exported
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -3980,10 +4417,12 @@ def main() -> int:
         vad_punc = phase_serve_vad_punc(cli_dir, chunk_dir)
         torch.cuda.empty_cache()
         beam = phase_beam_lm(cli_dir)
-    torch.cuda.empty_cache()
-    phase_vad_punc_train()
-    torch.cuda.empty_cache()
-    block, block_predict = phase_block_stream()
+        torch.cuda.empty_cache()
+        phase_vad_punc_train()
+        torch.cuda.empty_cache()
+        block, block_predict = phase_block_stream()
+        torch.cuda.empty_cache()
+        leaf_wav, exported = phase_leaf_wav_export(cli_dir, chunk_dir)
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
@@ -3999,7 +4438,9 @@ def main() -> int:
               "block-streaming predict, train, CLI and session calls":
                   block,
               "beam and LM phase's predict calls, eval_am, served encodes "
-              "and train steps": beam}
+              "and train steps": beam,
+              "add_wav_info predict and train calls and the exported "
+              "encoder and picker calls": leaf_wav}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)
@@ -4035,6 +4476,9 @@ def main() -> int:
                          for key in CHUNK_K1_SHAPES},
         "valid_train_cli_shapes": {"shapes": k1_chunk["train_cli"],
                                    "launches": chunk["train_cli"][0]},
+        # through the tasr:: ops of programs saved by torch.export and
+        # loaded back: one exported encoder call and the picker's chunks
+        "exported_graph_launches": exported[0],
     }
     serve = k1["log_mel"]["serve"]
     log_mel = {
@@ -4063,6 +4507,7 @@ def main() -> int:
         "valid_shapes": {key: dict(k1_chunk["log_mel"][key],
                                    launches=chunk[key][1])
                          for key in k1_chunk["log_mel"]},
+        "exported_graph_launches": exported[1],
     }
     log(json.dumps({"kernels": [entry, log_mel]}))
     log(json.dumps({"ok": True, "device": {

@@ -65,6 +65,10 @@ def main(argv=None) -> int:
                              "asr_offline) to DIR")
     parser.add_argument("--export_savedmodel", default=None, metavar="DIR",
                         help="not ported (needs TF)")
+    parser.add_argument("--export_durations", default="2,4,6,8",
+                        help="duration buckets (s) for the SavedModel "
+                             "encoder signatures (read only with "
+                             "--export_savedmodel)")
     args = parser.parse_args(argv)
     if args.export_savedmodel:
         raise NotImplementedError(

@@ -60,7 +60,6 @@ sequential path, up to rounding. It holds for helper ``win_back`` 0 only.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -78,6 +77,7 @@ from tensorflowasr_tpu_torch.models.layers import (
     MultiHeadAttention,
     glu,
     init_weights_,
+    tensor_cache,
 )
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops.specaug import spec_augment
@@ -219,7 +219,7 @@ def _band(p: torch.Tensor, length: int, win_front: int, win_back: int
     return (j >= low) & (j <= high)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def chunk_band_mask(t: int, win_front: int, win_back: int,
                     device: Union[str, torch.device, None] = None
                     ) -> torch.Tensor:
@@ -242,7 +242,7 @@ def buffer_validity(cache_len: int, t: int, fill: torch.Tensor,
     return cache_ok & ~input_bad
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache
 def _stream_band(cache_len: int, t: int, win_front: int, win_back: int,
                  device: torch.device) -> torch.Tensor:
     p = cache_len + torch.arange(t, device=device)

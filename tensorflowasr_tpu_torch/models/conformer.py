@@ -19,7 +19,9 @@ In training mode (``model.train()``) dropout, batch-statistics BatchNorm and
 (with ``spec_augment``) SpecAugment on the log-mel are active; their random
 draws come from the generator handed over with ``layers.set_generator``.
 
-The LEAF frontend and ``add_wav_info`` are not ported yet and raise.
+``mel_layer_type: leaf`` puts the LEAF frontend (``models/leaf.py``) in
+place of the log-mel; ``add_wav_info`` adds a ``WavePickModel``
+(``models/wav_model.py``) of the raw wav to the subsampled features.
 Weights come from ``models/convert.py`` (flax variables) or from
 :func:`build_model`'s seeded random init.
 """
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tensorflowasr_tpu_torch.models.leaf import Leaf
 from tensorflowasr_tpu_torch.models.layers import (
     BatchNorm,
     ConformerBlock,
@@ -42,6 +45,7 @@ from tensorflowasr_tpu_torch.models.layers import (
     RBlock,
     init_weights_,
 )
+from tensorflowasr_tpu_torch.models.wav_model import WavePickModel
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops.ctc import collapse_and_remove_blank
 from tensorflowasr_tpu_torch.ops.specaug import spec_augment
@@ -80,7 +84,8 @@ class ConformerConfig:
     sample_rate: int = 16000
     n_mels: int = 80
     stride_ms: int = 10
-    mel_layer_type: str = "Melspectrogram"   # Melspectrogram | Spectrogram
+    # Melspectrogram | Spectrogram | leaf
+    mel_layer_type: str = "Melspectrogram"
     mel_layer_trainable: bool = False
     add_wav_info: bool = False
     # SpecAugment on the log-mel, on the device (training mode only)
@@ -168,19 +173,25 @@ class ConformerConfig:
 
 
 class MelFrontend(nn.Module):
-    """wav [B, T] -> log-mel [B, ceil(T/hop), n_mels] (Melspectrogram) or
-    dB power spectrum [B, F, n_freq] (Spectrogram)."""
+    """wav [B, T] -> log-mel [B, ceil(T/hop), n_mels] (Melspectrogram),
+    dB power spectrum [B, F, n_freq] (Spectrogram) or LEAF features [B, F,
+    n_mels] (leaf, the submodule ``leaf``)."""
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        if cfg.mel_layer_type not in ("Melspectrogram", "Spectrogram"):
-            raise NotImplementedError(
-                f"mel_layer_type {cfg.mel_layer_type!r} is not ported yet")
+        if cfg.mel_layer_type not in ("Melspectrogram", "Spectrogram",
+                                      "leaf"):
+            raise ValueError(
+                f"unknown mel_layer_type {cfg.mel_layer_type!r}")
         self.mel_layer_type = cfg.mel_layer_type
         self.fcfg = fe.LogMelFrontendConfig(
             sample_rate=cfg.sample_rate, n_fft=N_FFT,
             stride_ms=cfg.stride_ms, n_mels=cfg.n_mels, padding="same")
-        self.freq2mel = None
+        self.freq2mel = self.leaf = None
+        if cfg.mel_layer_type == "leaf":
+            self.leaf = Leaf(n_filters=cfg.n_mels,
+                             sample_rate=cfg.sample_rate,
+                             window_stride_ms=cfg.stride_ms)
         if cfg.mel_layer_trainable and cfg.mel_layer_type == "Melspectrogram":
             self.freq2mel = nn.Parameter(torch.from_numpy(
                 fe.mel_filterbank(cfg.sample_rate, N_FFT, cfg.n_mels)))
@@ -196,6 +207,8 @@ class MelFrontend(nn.Module):
             wav = wav[..., 0]
         if self.mel_layer_type == "Spectrogram":
             return fe.spectrogram_feature(wav, self.fcfg)
+        if self.leaf is not None:
+            return self.leaf(wav)
         return fe.log_mel_spectrogram(wav, self.fcfg,
                                       mel_weights=self.freq2mel)
 
@@ -235,14 +248,16 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        if cfg.add_wav_info:
-            raise NotImplementedError("add_wav_info is not ported yet")
         self.cfg = cfg
         self.generator: Optional[torch.Generator] = None   # SpecAugment
         self.mel_layer = MelFrontend(cfg)
         self.conv_subsampling = ConvSubsampling(
             cfg.dmodel, self.mel_layer.out_features, cfg.reduction_factor,
             cfg.dropout, cfg.dtype)
+        self.wav_layer = None
+        if cfg.add_wav_info:
+            self.wav_layer = WavePickModel(
+                cfg.dmodel, cfg.hop_size * cfg.reduction_factor, cfg.dtype)
         self.blocks = nn.ModuleList([
             ConformerBlock(cfg.dmodel, cfg.dropout, cfg.fc_factor,
                            cfg.head_size, cfg.num_heads, cfg.kernel_size,
@@ -250,11 +265,13 @@ class ConformerEncoder(nn.Module):
             for _ in range(cfg.num_blocks)])
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        return self._stack(self.mel_layer(fe.wav_to_float(wav)))
+        wav = fe.wav_to_float(wav)
+        return self._stack(self.mel_layer(wav), wav)
 
-    def _stack(self, mel: torch.Tensor) -> torch.Tensor:
+    def _stack(self, mel: torch.Tensor, wav: torch.Tensor) -> torch.Tensor:
         """log-mel [B, F, n_mels] -> SpecAugment in training mode ->
-        subsampling -> blocks -> [B, T', dmodel] f32."""
+        subsampling (+ the ``wav_layer`` features of ``wav`` [B, T(, 1)]
+        under ``add_wav_info``) -> blocks -> [B, T', dmodel] f32."""
         c = self.cfg
         if self.training and c.spec_augment:
             if self.generator is None:
@@ -266,6 +283,8 @@ class ConformerEncoder(nn.Module):
                 n_time_masks=c.specaug_time_masks,
                 time_ratio=c.specaug_time_ratio)
         x = self.conv_subsampling(mel[..., None])
+        if self.wav_layer is not None:
+            x = x + self.wav_layer(wav)[:, :x.shape[1]]
         remat = c.remat_blocks and self.training and torch.is_grad_enabled()
         for block in self.blocks:
             x = _remat(block, x, self.generator) if remat else block(x)
@@ -278,8 +297,9 @@ class StreamingConformerEncoder(ConformerEncoder):
     chunk alone (SpecAugment's ``time_ratio`` is of a chunk) and the output
     is [B, n * T'_chunk, dmodel]. The 'same' log-mel is normalised by each
     chunk's own maximum and padded at each chunk's edges, so folding after
-    the frontend would not give these numbers. The submodules and their
-    parameter names are the offline encoder's."""
+    the frontend would not give these numbers; ``wav_layer`` sees the
+    folded chunks too. The submodules and their parameter names are the
+    offline encoder's."""
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         wav = fe.wav_to_float(wav)
@@ -290,7 +310,8 @@ class StreamingConformerEncoder(ConformerEncoder):
         if t % chunk != 0:
             raise ValueError(f"input length {t} not a multiple of the "
                              f"streaming chunk {chunk}")
-        x = self._stack(self.mel_layer(wav.reshape(b * (t // chunk), chunk)))
+        folded = wav.reshape(b * (t // chunk), chunk)
+        x = self._stack(self.mel_layer(folded), folded)
         return x.reshape(b, -1, self.cfg.dmodel)
 
 

@@ -22,6 +22,10 @@ Layout changes, by leaf:
 - LayerNorm / BatchNorm ``scale``       -> ``weight``
 - BatchNorm stats ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
 - Embed ``embedding``                   -> ``weight``
+- LEAF (``mel_layer/leaf``): ``preemp_kernel``, ``gabor_params``,
+  ``pool_sigma``, ``norm_scale``, ``norm_bias`` and ``pcen/{alpha,delta,
+  root,smooth}`` keep their names and layouts
+- ``WavePickModel`` (``wav_layer``) is convs only: the 1-D conv rule
 
 Every produced key must exist in the torch model and every model key must
 be produced, with matching shapes; anything else raises.
@@ -63,6 +67,11 @@ _CHUNK_BLOCK = re.compile(r"block_(\d+)$")
 
 AnyConfig = Union[ConformerConfig, ChunkConformerConfig]
 
+# the LEAF frontend's leaves, carried across as they are
+_LEAF_PARAMS = frozenset({"preemp_kernel", "gabor_params", "pool_sigma",
+                          "norm_scale", "norm_bias", "alpha", "delta",
+                          "root", "smooth"})
+
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dicts -> {"a/b/leaf": array} (native_export's names)."""
@@ -90,6 +99,8 @@ def _unstack_scanned(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def _convert_leaf(path: list, arr: np.ndarray):
     """(flax module path + leaf name, array) -> (torch leaf name, array)."""
     leaf, parent = path[-1], path[-2] if len(path) > 1 else ""
+    if "leaf" in path[:-1] and leaf in _LEAF_PARAMS:
+        return leaf, arr
     if leaf == "kernel":
         if arr.ndim == 2:                                   # Dense
             return "weight", arr.T
@@ -200,7 +211,8 @@ def _invert_leaf(module_path: str, leaf: str, arr: np.ndarray,
     attention module's path to (num_heads, head_size)."""
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", leaf[len("running_"):], arr
-    if leaf == "freq2mel":
+    if leaf == "freq2mel" or (leaf in _LEAF_PARAMS
+                              and "leaf" in module_path.split(".")):
         return "params", leaf, arr
     parent, _, name = module_path.rpartition(".")
     if parent in heads and name in ("query", "key", "value", "out"):

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -165,16 +165,19 @@ class DepthwiseConv1D(nn.Module):
     ``padding`` is flax 'SAME' or "CAUSAL" (K-1 left, 0 right: the chunk
     modules' form); ``forward``'s ``pad`` = (lo, hi) overrides it, e.g.
     (0, 0) for a VALID window over a streaming ring that already holds the
-    left context."""
+    left context. ``stride`` > 1 with 'SAME' pads as TF does for that
+    stride (``WavePickModel``'s first conv)."""
 
     def __init__(self, channels: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32, padding: str = "SAME"):
+                 dtype: torch.dtype = torch.float32, padding: str = "SAME",
+                 stride: int = 1):
         super().__init__()
         if padding not in ("SAME", "CAUSAL"):
             raise ValueError(f"DepthwiseConv1D supports padding 'SAME' or "
                              f"'CAUSAL', got {padding!r}")
         self.kernel_size = kernel_size
         self.padding = padding
+        self.stride = stride
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.zeros(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -187,10 +190,10 @@ class DepthwiseConv1D(nn.Module):
         elif self.padding == "CAUSAL":
             lo, hi = self.kernel_size - 1, 0
         else:
-            lo, hi = _same_pad(x.shape[1], self.kernel_size, 1)
+            lo, hi = _same_pad(x.shape[1], self.kernel_size, self.stride)
         y = F.pad(x.to(dt).transpose(1, 2), (lo, hi))
         y = F.conv1d(y, self.weight.to(dt), self.bias.to(dt),
-                     groups=self.weight.shape[0])
+                     stride=self.stride, groups=self.weight.shape[0])
         return y.transpose(1, 2)
 
 
@@ -199,14 +202,17 @@ class Conv1D(nn.Module):
     [out, in, K] (the flax kernel [K, in, out] transposed, not flipped).
     ``padding`` = (left, right) zeros on the time axis: (K - 1, 0) is
     flax's causal ``[(K-1, 0)]``, and with stride 1 and an odd K, TF
-    'SAME' is (d * (K - 1) // 2) on each side at dilation d."""
+    'SAME' is (d * (K - 1) // 2) on each side at dilation d. ``padding``
+    "SAME" pads as TF does for the input's length and ``stride``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int, padding: Tuple[int, int],
-                 dilation: int = 1, dtype: torch.dtype = torch.float32):
+                 kernel_size: int, padding: Union[Tuple[int, int], str],
+                 dilation: int = 1, dtype: torch.dtype = torch.float32,
+                 stride: int = 1):
         super().__init__()
-        self.padding = tuple(padding)
+        self.padding = padding if padding == "SAME" else tuple(padding)
         self.dilation = dilation
+        self.stride = stride
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.zeros(out_channels, in_channels,
                                                kernel_size))
@@ -214,9 +220,13 @@ class Conv1D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.pad(x.to(dt).transpose(1, 2), self.padding)
+        pad = self.padding
+        if pad == "SAME":
+            span = self.dilation * (self.weight.shape[-1] - 1) + 1
+            pad = _same_pad(x.shape[1], span, self.stride)
+        y = F.pad(x.to(dt).transpose(1, 2), pad)
         y = F.conv1d(y, self.weight.to(dt), self.bias.to(dt),
-                     dilation=self.dilation)
+                     stride=self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
 
 
@@ -389,7 +399,22 @@ def positional_encoding(length: int, dmodel: int) -> np.ndarray:
     return pe
 
 
-@functools.lru_cache(maxsize=32)
+def tensor_cache(fn):
+    """``functools.lru_cache`` for a function that builds a constant
+    tensor, bypassed while ``torch.export`` (or ``torch.compile``) traces:
+    a tensor made then belongs to the tracer and must not reach a later
+    eager call."""
+    cached = functools.lru_cache(maxsize=64)(fn)
+
+    @functools.wraps(fn)
+    def build(*args):
+        if torch.compiler.is_compiling():
+            return fn(*args)
+        return cached(*args)
+    return build
+
+
+@tensor_cache
 def _pe_table(length: int, dmodel: int, device: torch.device
               ) -> torch.Tensor:
     return torch.from_numpy(positional_encoding(length, dmodel)).to(device)

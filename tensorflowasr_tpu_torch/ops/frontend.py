@@ -15,9 +15,13 @@ Semantics kept from the JAX package:
 - dB is applied to the POWER spectrogram and the mel matmul mixes dB
   values.
 
-:func:`log_mel_spectrogram` and :func:`power_spectrogram` dispatch on the
-tensor's device: a CUDA tensor goes to a hand-written kernel, a CPU tensor
-to the plain version, any other device raises. On the card the log-mel is
+:func:`log_mel_spectrogram` and :func:`power_spectrogram` call the
+``torch.library`` custom ops ``tasr::log_mel_spectrogram``,
+``tasr::log_mel_spectrogram_weights`` and ``tasr::power_spectrogram``, which
+dispatch on the tensor's device: a CUDA tensor goes to a hand-written
+kernel, a CPU tensor to the plain version, any other device raises. Each op
+has a fake implementation, so ``torch.export`` carries it into an exported
+program as one node (``export/exporter.py``). On the card the log-mel is
 K1b (``ops/log_mel_spectrogram.py``): the FFT, the dB and the banded mel
 product fused in one kernel, two launches for 'same' (its per-example max
 first); a given (trainable) mel matrix takes K1 and a dense product kernel.
@@ -213,16 +217,12 @@ def power_spectrogram_reference(wav: torch.Tensor,
 
 def power_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig
                       ) -> torch.Tensor:
-    """[B, T] -> [B, n_frames, n_freq] power spectrum: the K1 kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if wav.device.type == "cuda":
-        wav = wav.to(torch.float32).contiguous()
-        return k1.power_spectrogram_cuda(
-            wav, _kernel_tables(cfg, wav.device), cfg.hop,
-            _left_pad(wav.shape[1], cfg))
-    if wav.device.type == "cpu":
-        return power_spectrogram_reference(wav, cfg)
-    raise ValueError(f"power_spectrogram: unsupported device {wav.device}")
+    """[B, T] -> [B, n_frames, n_freq] power spectrum through
+    ``tasr::power_spectrogram``: the K1 kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    _check_device(wav, "power_spectrogram")
+    return power_spectrogram_op(wav.to(torch.float32).contiguous(),
+                                *_op_args(cfg))
 
 
 def amplitude_to_db(x: torch.Tensor, amin: float = 1e-10,
@@ -258,29 +258,152 @@ def log_mel_spectrogram_reference(wav: torch.Tensor,
                         fb)
 
 
-class _FusedLogMel(torch.autograd.Function):
-    """K1b with a given mel matrix; the gradient reaches the matrix only
-    (the wav carries none, as on every path of the frontend). The backward
-    rebuilds the dB spectrum with K1 and the plain dB pass instead of
-    keeping it from the forward (at B = 128 x 8 s that is 210 MB not held
-    across the step), then ``grad_W = db^T grad`` by ``torch.matmul``."""
+# ---------------------------------------------------------------------------
+# K1 and K1b as torch.library custom ops
+# ---------------------------------------------------------------------------
+#
+# Each op takes the wav and the config's fields as plain numbers, so that
+# ``torch.export`` records it as one node (``tasr::...``) that the exported
+# program calls again when it runs: the CUDA implementation launches the
+# kernel (today's launch, counted as before), the CPU one runs the plain
+# version, and the fake one gives the output's shape. The kernels' tables are
+# looked up per (config, device) inside the implementations, so no constant
+# enters the graph.
 
-    @staticmethod
-    def forward(ctx, wav, mel_weights, cfg):
-        ctx.save_for_backward(wav)
-        ctx.cfg = cfg
-        return k1b.log_mel_spectrogram_cuda(
-            wav, _kernel_tables(cfg, wav.device), mel_weights, cfg.n_mels,
-            cfg.hop, _left_pad(wav.shape[1], cfg),
-            same=cfg.padding == "same", dynamic_range=cfg.dynamic_range_db)
+def _op_cfg(sample_rate: int, n_fft: int, stride_ms: int, same: bool,
+            n_mels: int = 80, fmin: float = 0.0,
+            fmax: Optional[float] = None,
+            dynamic_range: float = 80.0) -> LogMelFrontendConfig:
+    return LogMelFrontendConfig(
+        sample_rate=sample_rate, n_fft=n_fft, stride_ms=stride_ms,
+        n_mels=n_mels, fmin=fmin, fmax=fmax,
+        padding="same" if same else "valid", dynamic_range_db=dynamic_range)
 
-    @staticmethod
-    def backward(ctx, grad):
-        (wav,), cfg = ctx.saved_tensors, ctx.cfg
-        db = _to_db(power_spectrogram(wav, cfg), cfg)
-        grad_w = torch.matmul(db.reshape(-1, cfg.n_freq).t(),
-                              grad.reshape(-1, cfg.n_mels))
-        return None, grad_w, None
+
+def _op_args(cfg: LogMelFrontendConfig) -> tuple:
+    return cfg.sample_rate, cfg.n_fft, cfg.stride_ms, cfg.padding == "same"
+
+
+def _fake_frames(wav: torch.Tensor, sample_rate: int, stride_ms: int,
+                 width) -> torch.Tensor:
+    hop = sample_rate * stride_ms // 1000
+    return wav.new_empty((wav.shape[0], -(-wav.shape[1] // hop), width),
+                         dtype=torch.float32)
+
+
+@torch.library.custom_op("tasr::power_spectrogram", mutates_args=(),
+                         device_types="cpu")
+def power_spectrogram_op(wav: torch.Tensor, sample_rate: int, n_fft: int,
+                         stride_ms: int, same: bool) -> torch.Tensor:
+    """wav [B, T] f32 -> power [B, ceil(T/hop), n_fft/2 + 1]: K1 on the
+    card, the plain version on the CPU."""
+    return power_spectrogram_reference(
+        wav, _op_cfg(sample_rate, n_fft, stride_ms, same))
+
+
+@power_spectrogram_op.register_kernel("cuda")
+def _power_cuda(wav, sample_rate, n_fft, stride_ms, same):
+    cfg = _op_cfg(sample_rate, n_fft, stride_ms, same)
+    return k1.power_spectrogram_cuda(
+        wav, _kernel_tables(cfg, wav.device), cfg.hop,
+        _left_pad(wav.shape[1], cfg))
+
+
+@power_spectrogram_op.register_fake
+def _power_fake(wav, sample_rate, n_fft, stride_ms, same):
+    return _fake_frames(wav, sample_rate, stride_ms, n_fft // 2 + 1)
+
+
+@torch.library.custom_op("tasr::log_mel_spectrogram", mutates_args=(),
+                         device_types="cpu")
+def log_mel_spectrogram_op(wav: torch.Tensor, sample_rate: int, n_fft: int,
+                           stride_ms: int, same: bool, n_mels: int,
+                           fmin: float, fmax: Optional[float],
+                           dynamic_range: float) -> torch.Tensor:
+    """wav [B, T] f32 -> log-mel [B, ceil(T/hop), n_mels] with the fixed
+    Slaney basis: K1b on the card, the plain version on the CPU."""
+    return log_mel_spectrogram_reference(wav, _op_cfg(
+        sample_rate, n_fft, stride_ms, same, n_mels, fmin, fmax,
+        dynamic_range))
+
+
+@log_mel_spectrogram_op.register_kernel("cuda")
+def _log_mel_cuda(wav, sample_rate, n_fft, stride_ms, same, n_mels, fmin,
+                  fmax, dynamic_range):
+    cfg = _op_cfg(sample_rate, n_fft, stride_ms, same, n_mels, fmin, fmax,
+                  dynamic_range)
+    sched, weights = _kernel_bands(cfg, wav.device)
+    return k1b.log_mel_spectrogram_cuda(
+        wav, _kernel_tables(cfg, wav.device), weights, n_mels, cfg.hop,
+        _left_pad(wav.shape[1], cfg), sched=sched, same=same,
+        dynamic_range=dynamic_range)
+
+
+@log_mel_spectrogram_op.register_fake
+def _log_mel_fake(wav, sample_rate, n_fft, stride_ms, same, n_mels, fmin,
+                  fmax, dynamic_range):
+    return _fake_frames(wav, sample_rate, stride_ms, n_mels)
+
+
+@torch.library.custom_op("tasr::log_mel_spectrogram_weights",
+                         mutates_args=(), device_types="cpu")
+def log_mel_spectrogram_weights_op(wav: torch.Tensor,
+                                   mel_weights: torch.Tensor,
+                                   sample_rate: int, n_fft: int,
+                                   stride_ms: int, same: bool,
+                                   dynamic_range: float) -> torch.Tensor:
+    """wav [B, T] f32, mel_weights [n_fft/2 + 1, n_mels] f32 -> log-mel by
+    that matrix: K1b's given-matrix path (K1, then the dense product
+    kernel) on the card, the plain version on the CPU."""
+    cfg = _op_cfg(sample_rate, n_fft, stride_ms, same, mel_weights.shape[1],
+                  dynamic_range=dynamic_range)
+    return log_mel_spectrogram_reference(wav, cfg, mel_weights)
+
+
+@log_mel_spectrogram_weights_op.register_kernel("cuda")
+def _log_mel_weights_cuda(wav, mel_weights, sample_rate, n_fft, stride_ms,
+                          same, dynamic_range):
+    cfg = _op_cfg(sample_rate, n_fft, stride_ms, same, mel_weights.shape[1],
+                  dynamic_range=dynamic_range)
+    return k1b.log_mel_spectrogram_cuda(
+        wav, _kernel_tables(cfg, wav.device), mel_weights, cfg.n_mels,
+        cfg.hop, _left_pad(wav.shape[1], cfg), same=same,
+        dynamic_range=dynamic_range)
+
+
+@log_mel_spectrogram_weights_op.register_fake
+def _log_mel_weights_fake(wav, mel_weights, sample_rate, n_fft, stride_ms,
+                          same, dynamic_range):
+    return _fake_frames(wav, sample_rate, stride_ms, mel_weights.shape[1])
+
+
+def _log_mel_weights_setup(ctx, inputs, output):
+    wav, mel_weights, sample_rate, n_fft, stride_ms, same, dr = inputs
+    ctx.save_for_backward(wav)
+    ctx.cfg = _op_cfg(sample_rate, n_fft, stride_ms, same,
+                      mel_weights.shape[1], dynamic_range=dr)
+
+
+def _log_mel_weights_backward(ctx, grad):
+    """The gradient reaches the matrix only (the wav carries none, as on
+    every path of the frontend). It rebuilds the dB spectrum with the power
+    op (K1 on the card) and the plain dB pass instead of keeping it from
+    the forward (at B = 128 x 8 s that is 210 MB not held across the step),
+    then ``grad_W = db^T grad`` by ``torch.matmul``."""
+    (wav,), cfg = ctx.saved_tensors, ctx.cfg
+    db = _to_db(power_spectrogram(wav, cfg), cfg)
+    grad_w = torch.matmul(db.reshape(-1, cfg.n_freq).t(),
+                          grad.reshape(-1, cfg.n_mels))
+    return None, grad_w, None, None, None, None, None
+
+
+log_mel_spectrogram_weights_op.register_autograd(
+    _log_mel_weights_backward, setup_context=_log_mel_weights_setup)
+
+
+def _check_device(wav: torch.Tensor, what: str) -> None:
+    if wav.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {wav.device}")
 
 
 def log_mel_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig,
@@ -288,25 +411,21 @@ def log_mel_spectrogram(wav: torch.Tensor, cfg: LogMelFrontendConfig,
                         ) -> torch.Tensor:
     """[B, T] -> [B, n_frames, n_mels] log-mel features (dB on the power
     spectrum first, then the mel matmul). ``mel_weights`` [n_freq, n_mels]
-    overrides the fixed Slaney basis (the trainable filterbank). The K1b
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if wav.device.type == "cuda":
-        wav = wav.to(torch.float32).contiguous()
-        if mel_weights is not None:
-            if tuple(mel_weights.shape) != (cfg.n_freq, cfg.n_mels):
-                raise ValueError(f"mel_weights must be [{cfg.n_freq}, "
-                                 f"{cfg.n_mels}], got "
-                                 f"{tuple(mel_weights.shape)}")
-            return _FusedLogMel.apply(
-                wav, mel_weights.to(torch.float32).contiguous(), cfg)
-        sched, weights = _kernel_bands(cfg, wav.device)
-        return k1b.log_mel_spectrogram_cuda(
-            wav, _kernel_tables(cfg, wav.device), weights, cfg.n_mels,
-            cfg.hop, _left_pad(wav.shape[1], cfg), sched=sched,
-            same=cfg.padding == "same", dynamic_range=cfg.dynamic_range_db)
-    if wav.device.type == "cpu":
-        return log_mel_spectrogram_reference(wav, cfg, mel_weights)
-    raise ValueError(f"log_mel_spectrogram: unsupported device {wav.device}")
+    overrides the fixed Slaney basis (the trainable filterbank). Through
+    the ``tasr::`` ops: K1b for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    _check_device(wav, "log_mel_spectrogram")
+    wav = wav.to(torch.float32).contiguous()
+    if mel_weights is None:
+        return log_mel_spectrogram_op(wav, *_op_args(cfg), cfg.n_mels,
+                                      cfg.fmin, cfg.fmax,
+                                      cfg.dynamic_range_db)
+    if tuple(mel_weights.shape) != (cfg.n_freq, cfg.n_mels):
+        raise ValueError(f"mel_weights must be [{cfg.n_freq}, "
+                         f"{cfg.n_mels}], got {tuple(mel_weights.shape)}")
+    return log_mel_spectrogram_weights_op(
+        wav, mel_weights.to(torch.float32).contiguous(), *_op_args(cfg),
+        cfg.dynamic_range_db)
 
 
 def spectrogram_feature(wav: torch.Tensor, cfg: LogMelFrontendConfig

@@ -31,8 +31,10 @@ The plain version is ``ops/frontend.py::log_mel_spectrogram_reference``
 (K1's plain version, the dB pass and ``torch.matmul``): the CPU path runs
 it, and ``chip_smoke.py`` holds the kernel against it on the card.
 :func:`log_mel_spectrogram_cuda` launches the kernel; it takes CUDA tensors
-only and never falls back. Its gradient with respect to a trainable mel
-matrix is ``ops/frontend.py``'s autograd function.
+only and never falls back. ``ops/frontend.py`` registers it as the
+``tasr::log_mel_spectrogram`` and ``tasr::log_mel_spectrogram_weights``
+custom ops; the latter's registered autograd is its gradient with respect
+to a trainable mel matrix.
 """
 
 from __future__ import annotations

@@ -255,10 +255,18 @@ def test_eval_mode_is_unchanged_by_the_training_fields():
 
 
 def test_unported_options_raise():
-    for kw in (dict(add_wav_info=True), dict(mel_layer_type="leaf")):
-        cfg = tconf.ConformerConfig(**TINY, **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tconf.ConformerCTC(cfg, N_PHONE, N_CHAR)
+    """``add_wav_info`` and ``mel_layer_type: leaf`` are ported (held to
+    JAX by tests/test_torch_wav_model.py and tests/test_torch_leaf.py):
+    both build. A mel_layer_type that is none of the three raises."""
+    for kw, sub in ((dict(add_wav_info=True), "wav_layer"),
+                    (dict(mel_layer_type="leaf"), "mel_layer.leaf")):
+        model = tconf.ConformerCTC(tconf.ConformerConfig(**TINY, **kw),
+                                   N_PHONE, N_CHAR)
+        assert model.encoder.get_submodule(sub) is not None
+    with pytest.raises(ValueError, match="unknown mel_layer_type"):
+        tconf.ConformerCTC(tconf.ConformerConfig(**TINY,
+                                                 mel_layer_type="mfcc"),
+                           N_PHONE, N_CHAR)
 
 
 def test_build_model_cuda_without_cuda_raises():
