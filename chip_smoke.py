@@ -3,7 +3,8 @@ paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
 socket model server, its VAD and punctuation serving and training, its
 block-streaming ConformerCTC, its CTC prefix beam search with n-gram
 shallow fusion, the LEAF and ``add_wav_info`` options, its export through
-``torch.export`` and its RNN-T loss on one CUDA card, and check them.
+``torch.export``, its RNN-T loss and its data and tensor parallelism on
+one CUDA card, and check them.
 
     python3 chip_smoke.py
 
@@ -262,6 +263,37 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``rnnt_loss`` and its gradient at B=8, T=200, U=40, V=256 on
              the card against the CPU (1e-4 relative, 1e-4 of the largest
              gradient entry), timed forward and backward.
+22. parallel - data and tensor parallelism (``parallel/``) with two gloo
+             ranks pinned to the one card (``parallel/step_check.py``
+             starts them; each counts its own K1 and K1b launches and sends
+             them back): (a) the full-width ConformerCTC(S) (dropout 0,
+             f32, Adam lr 1e-3 at epsilon 1) at a global B=32 x 8 s for 3
+             steps, then ChunkConformer(S) with the calibrated picker, each
+             held to one process on the same 32 rows from the same weights:
+             loss within 1e-4 relative a step, the gradients' global norm
+             as the optimizer computes it after its all-reduce within 1e-3,
+             parameters and BatchNorm statistics identical across ranks;
+             after the first step and after the third, the statistics
+             within 1e-4 of each
+             leaf's largest entry and the parameters within the fixed
+             bounds set from earlier readings (PARALLEL_PARAM_REL: 1e-4 /
+             5e-4 for ConformerCTC(S), 2.5e-4 / 5e-4 for the chunk model),
+             every bias first moved off zero by
+             0.02 x N(0, 1); the chunk batch's halves would take other
+             ``t_ref`` alone, printed; a planted fault (BatchNorm moments
+             over each rank's own rows) must exceed a bound; (b) a (1 x 2)
+             tensor-parallel SGD step of ConformerCTC(S) (4 heads over 2)
+             at B=8 (biases moved off zero), loss within 1e-4, every
+             parameter within 5e-4 of its largest entry in one process (a
+             fixed bound over an earlier reading, TP_PARAM_REL); (c)
+             ``cli.train_asr --device cuda:0 --dist_backend gloo`` under
+             ``torchrun --nproc_per_node 2`` on phase 7's kind of corpus for
+             6 steps with saves, rank 0 alone writing, then a one-process
+             ``cli.eval_am`` restoring the checkpoint; (d) one process at
+             world size 1 on the default backend (NCCL) taking a step equal
+             to the one without a process group. Prints the 2-rank and
+             one-process step times (two ranks share one card: not a
+             scaling figure). A failing rank fails the phase.
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
@@ -271,8 +303,9 @@ the model server's served window, the VAD and punctuation phase's timed
 sessions and files, the VAD and punctuation training phase (which must
 launch neither), the block-streaming phase's predict, train, CLI and
 session calls, the beam phase's predict calls, ``eval_am --lm``, served
-encodes and train steps, and each of the last phase's predict and train
-windows and loaded-graph calls, and read just after each; all but the
+encodes and train steps, each of the leaf_wav_export phase's predict and
+train windows and loaded-graph calls, and the parallel phase's rank,
+one-process and eval_am steps, and read just after each; all but the
 training of VAD and punctuation and the LEAF branch must have launched
 both. K1b counts one launch a
 log-mel (the launch that writes it); K1 counts every launch of the FFT
@@ -4383,6 +4416,407 @@ def phase_leaf_wav_export(cli_dir: str, chunk_dir: str,
     return add(launches, exported), exported
 
 
+# ---------------------------------------------------------------------------
+# Data and tensor parallelism: parallel/ with two ranks on the one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_B, PARALLEL_STEPS = 32, 3           # am_data.yml's batch_size, x 8 s
+# Adam at epsilon 1, as the CPU gate runs it (tests/test_torch_parallel.py):
+# at 1e-6 a gradient that is rounding noise steps +-lr, in either run
+PARALLEL_ADAM = {"lr": 1e-3, "epsilon": 1.0}
+# each step's loss, relative; the gradients' global norm as the optimizer
+# computes it after its all-reduce, relative; the BatchNorm statistics, of
+# each leaf's largest entry
+PARALLEL_LOSS_REL, PARALLEL_NORM_REL, PARALLEL_STAT_REL = 1e-4, 1e-3, 1e-4
+# every parameter after the first step and after the third, of its leaf's
+# largest entry: fixed bounds over the readings of two ranks against one
+# process in the runs PERF.md records (NVIDIA H100 80GB HBM3 at 700.00 W):
+# the card's rounding of a long gradient sum (a subsampling conv's, a
+# depthwise kernel's) sets them, and grows with each Adam step at epsilon
+# 1. After step 1: ConformerCTC(S) 2.403e-5 -
+# 3.0e-5, ChunkConformer(S) 1.050e-4 - 1.110e-4 (its first block's
+# depthwise kernel). After step 3: ConformerCTC(S) 2.270e-4 - 2.402e-4,
+# ChunkConformer(S) 2.195e-4 - 3.073e-4. BatchNorm moments over each rank's
+# own rows (the planted fault) read 3.433e-2 after step 1.
+PARALLEL_PARAM_REL = {"ctc": (1e-4, 5e-4), "chunk": (2.5e-4, 5e-4)}
+TP_LR = 1e-2                                 # tests/test_tp.py's SGD
+# the (1 x 2) tensor-parallel SGD step's parameters, of each leaf's largest
+# entry: a fixed bound over the readings 1.499e-4 and 1.506e-4 (PERF.md, the
+# same card); tests/test_tp.py's lr x 1e-2 absolute is printed beside it
+# (7.501e-5 and 7.540e-5)
+TP_PARAM_REL = 5e-4
+
+
+def perturb_biases(model, seed: int) -> None:
+    """Every bias moved off its zero start by 0.02 x N(0, 1): a leaf that
+    starts at 0 would be held, after the steps, to 1e-4 of a few
+    lr-sized moves, finer than the rounding of its gradient's long sum
+    (``tests/test_torch_train.py`` draws its biases so for the same
+    reason)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.add_((torch.randn(p.shape, generator=g) * 0.02).to(
+                    p.device))
+
+
+def parallel_spec(work: str, name: str, kind: str, model, numpy_batch,
+                  steps: int, **kw) -> dict:
+    """A ``parallel/step_check.py`` spec: the shipped configs of ``kind``
+    at dropout 0 and f32, ``model``'s weights, ``steps`` steps on
+    ``numpy_batch``, ranks pinned to cuda:0 over gloo."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_yml = {"ctc": "conformerS.yml",
+                 "chunk": "chunk_conformerS.yml"}[kind]
+    extra = {"optimizer_config": dict(PARALLEL_ADAM)}
+    if kind == "ctc":
+        extra["model_config"] = {"dropout": 0.0, "ctcdecoder_dropout": 0.0,
+                                 "translator_dropout": 0.0}
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    torch.save(model.state_dict(), os.path.join(d, "weights.pt"))
+    np.savez(os.path.join(d, "batches.npz"),
+             **{f"{i}/{k}": v for i in range(steps)
+                for k, v in numpy_batch.items()})
+    return {"kind": kind,
+            "config_files": [os.path.join(root, "configs", "am_data.yml"),
+                             os.path.join(root, "configs", model_yml)],
+            "extra": extra, "n_phone": N_PHONE, "n_char": N_CHAR,
+            "weights": os.path.join(d, "weights.pt"),
+            "batches": os.path.join(d, "batches.npz"), "steps": steps,
+            "device": "cuda:0", "backend": "gloo", "threads": 2, **kw}
+
+
+def leaves(result: dict, key: str = "params") -> dict:
+    return {k: v["value"] for k, v in result[key].items()}
+
+
+def worst_leaf(got: dict, want: dict) -> tuple:
+    """(the largest max |got - want| of a leaf over that leaf's largest
+    entry in ``want``, the leaf)."""
+    return max((float((v - want[k]).abs().max())
+                / max(float(want[k].abs().max()), 1e-30), k)
+               for k, v in got.items())
+
+
+def parity(ranks: list, one: dict, first: bool) -> dict:
+    """The ranks against the one-process run: the largest relative error of
+    each step's loss and gradient norm over the steps the ranks took, and
+    the worst leaf of the parameters and of the buffers (the BatchNorm
+    statistics), after the first step (``first``) or after the last;
+    ``differ`` names the leaves that are not identical across ranks."""
+    worst = {"loss": 0.0, "norm": 0.0, "differ": []}
+    for i in range(len(ranks[0]["metrics"])):
+        want = one["metrics"][i]["train_loss"]
+        norm = one["grad_norms"][i]
+        for r in ranks:
+            worst["loss"] = max(worst["loss"], abs(
+                r["metrics"][i]["train_loss"] - want) / abs(want))
+            worst["norm"] = max(worst["norm"],
+                                abs(r["grad_norms"][i] - norm) / norm)
+    # a run of one step keeps its leaves after that step at the top level
+    ranks = [r["first"] or r for r in ranks] if first else ranks
+    for key in ("params", "buffers"):
+        got = leaves(ranks[0], key)
+        for r in ranks[1:]:
+            worst["differ"] += [k for k, v in leaves(r, key).items()
+                                if not torch.equal(v, got[k])]
+        worst[key] = worst_leaf(got, leaves(
+            one["first"] if first else one, key))
+    return worst
+
+
+def hold_ranks(what: str, kind: str, ranks: list, one: dict) -> list:
+    """Two ranks against one process: every step's loss within 1e-4
+    relative and gradient norm within 1e-3, the parameters and BatchNorm
+    statistics identical across ranks, after the first step and after the
+    last the statistics within 1e-4 of each leaf's largest entry and the
+    parameters within PARALLEL_PARAM_REL[kind]. Logs the readings; returns
+    what failed."""
+    first, last = parity(ranks, one, True), parity(ranks, one, False)
+    bound_first, bound_last = PARALLEL_PARAM_REL[kind]
+    failed = [f"{k} {last[k]:.3e}" for k, bound in (
+        ("loss", PARALLEL_LOSS_REL), ("norm", PARALLEL_NORM_REL))
+        if last[k] > bound]
+    failed += [f"{stage} {key} {w[key][0]:.3e} ({w[key][1]})"
+               for stage, w, key, bound in (
+                   ("step 1", first, "params", bound_first),
+                   ("step 1", first, "buffers", PARALLEL_STAT_REL),
+                   (f"step {PARALLEL_STEPS}", last, "params", bound_last),
+                   (f"step {PARALLEL_STEPS}", last, "buffers",
+                    PARALLEL_STAT_REL))
+               if w[key][0] > bound]
+    differ = first["differ"] + last["differ"]
+    failed += [f"{k} differs between ranks" for k in differ]
+    grad = one["grad_max"]
+
+    def leaf(w, key):
+        name = w[key][1]
+        g = f", its largest gradient {grad[name]:.3e}" if name in grad \
+            else ""
+        return f"{w[key][0]:.3e} ({name}{g})"
+
+    log(f"parallel: {what}: 2 ranks against one process over "
+        f"{len(one['metrics'])} steps: loss {last['loss']:.3e}, gradient "
+        f"norm {last['norm']:.3e} (relative, bounds {PARALLEL_LOSS_REL:g} "
+        f"and {PARALLEL_NORM_REL:g}); the worst leaf, of its largest entry, "
+        f"after step 1: parameters {leaf(first, 'params')} (bound "
+        f"{bound_first:g}), BatchNorm statistics {leaf(first, 'buffers')} "
+        f"(bound {PARALLEL_STAT_REL:g}); after step {PARALLEL_STEPS}: "
+        f"parameters {leaf(last, 'params')} (bound {bound_last:g}), "
+        f"statistics {leaf(last, 'buffers')}; "
+        f"ranks {'differ' if differ else 'identical'}"
+        + (f"; FAILED: {failed}" if failed else ""))
+    return [f"{what}: {f}" for f in failed]
+
+
+def hold_fault(what: str, kind: str, ranks: list, one: dict) -> list:
+    """A planted fault's one step against the one-process first step: logs
+    what each bound of :func:`hold_ranks` sees; returns a failure when no
+    bound sees it."""
+    w = parity(ranks, one, True)
+    seen = {"loss": w["loss"] > PARALLEL_LOSS_REL,
+            "gradient norm": w["norm"] > PARALLEL_NORM_REL,
+            "parameters": w["params"][0] > PARALLEL_PARAM_REL[kind][0],
+            "BatchNorm statistics": w["buffers"][0] > PARALLEL_STAT_REL}
+    log(f"parallel: planted fault, {what}: one step of 2 ranks against one "
+        f"process: loss {w['loss']:.3e}, gradient norm {w['norm']:.3e} "
+        f"(relative), parameters {w['params'][0]:.3e} ({w['params'][1]}), "
+        f"BatchNorm statistics {w['buffers'][0]:.3e} ({w['buffers'][1]}) of "
+        f"the leaf's largest entry; over the bounds: "
+        f"{[k for k, v in seen.items() if v] or 'NONE'}")
+    return [] if any(seen.values()) else [
+        f"the planted fault ({what}) passes every bound"]
+
+
+def half_t_refs(trainer, numpy_batch) -> tuple:
+    """(global t_ref, each half's own) from the picks of one training-mode
+    forward on the whole batch, no statistics moved: what each of two ranks
+    would take alone."""
+    from tensorflowasr_tpu_torch.models.layers import BatchNorm
+
+    batch = trainer._prepare_batch(numpy_batch)
+    model = trainer.state.model.train()
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.track_stats = False
+    try:
+        with torch.no_grad():
+            fwd = model.train_forward(
+                batch["wav"], batch["extra_phones"], None,
+                label_width=int(numpy_batch["phone_length"].max()))
+    finally:
+        for m in norms:
+            m.track_stats = True
+    counts = fwd["picked_counts"].cpu().numpy()
+    t = fwd["phone_logits"].shape[1]
+    half = len(counts) // 2
+    lw = numpy_batch["phone_length"]
+    return int(fwd["t_ref"]), tuple(
+        int(np.clip(max(counts[s].max(), lw[s].max()), 1, t))
+        for s in (slice(0, half), slice(half, None)))
+
+
+def rank_launches(results: list) -> tuple:
+    out = (0, 0)
+    for r in results:
+        out = add(out, tuple(r["launches"]))
+    return out
+
+
+def phase_parallel(work: str) -> tuple:
+    """(a) data parallel: two gloo ranks pinned to the one card train the
+    full-width ConformerCTC(S), then ChunkConformer(S) (calibrated picker),
+    at a global B=32 x 8 s for 3 steps, held to one process on the same 32
+    rows from the same weights; (b) a (1 x 2) tensor-parallel SGD step of
+    ConformerCTC(S) against one process; (c) ``cli.train_asr`` under
+    ``torchrun --nproc_per_node 2`` (gloo, cuda:0) on phase 7's kind of
+    corpus, then a one-process ``eval_am`` restoring its checkpoint; (d) one
+    process at world size 1 on the default backend (NCCL) taking a step.
+    Returns K1's and K1b's launches: the ranks' (each counts its own and
+    sends them back), the one-process runs' and eval_am's."""
+    from tensorflowasr_tpu_torch.cli import eval_am
+    from tensorflowasr_tpu_torch.parallel import step_check
+    from tensorflowasr_tpu_torch.serve.bench_chunk import (
+        calibrate,
+        shipped_chunk_config,
+    )
+    from tensorflowasr_tpu_torch.train.bench_chunk_batch import (
+        CALIBRATION_ROWS,
+        bench_wav,
+    )
+    from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
+
+    t_phase = time.perf_counter()
+    launches = (0, 0)
+    numpy_batch = train_batch(PARALLEL_B, TRAIN_SECONDS, TRAIN_PHONES,
+                              TRAIN_CHARS)
+    trainer = new_trainer("float32", "cuda")
+    perturb_biases(trainer.state.model, 1)
+    spec = parallel_spec(work, "ctc", "ctc", trainer.state.model,
+                         numpy_batch, PARALLEL_STEPS)
+    del trainer
+    one = step_check.run(spec)
+
+    # new_chunk_trainer's model, its biases perturbed before the picker's
+    # calibration
+    chunk = ChunkTrainer(shipped_chunk_config(), N_PHONE, N_CHAR,
+                         device="cuda", compute_dtype="float32")
+    chunk.init_state(seed=0)
+    perturb_biases(chunk.state.model, 2)
+    calibrate(chunk.state.model, training=True,
+              wav=bench_wav(CALIBRATION_ROWS, TRAIN_SECONDS))
+    chunk_batch = chunk_train_batch(PARALLEL_B)
+    t_ref, halves = half_t_refs(chunk, chunk_batch)
+    cspec = parallel_spec(work, "chunk", "chunk", chunk.state.model,
+                          chunk_batch, PARALLEL_STEPS)
+    del chunk
+    torch.cuda.empty_cache()
+    cone = step_check.run(cspec)
+
+    # (b) tensor parallel, 4 heads over a model axis of 2
+    trainer = new_trainer("float32", "cuda")
+    perturb_biases(trainer.state.model, 3)
+    tp_batch = train_batch(8, TRAIN_SECONDS, TRAIN_PHONES, TRAIN_CHARS)
+    tspec = parallel_spec(work, "tp", "ctc", trainer.state.model, tp_batch,
+                          1, sgd=TP_LR)
+    del trainer
+    tone = step_check.run(tspec)
+
+    # the three, and a planted fault (BatchNorm moments over each rank's
+    # rows), in one launch of two ranks (one start-up)
+    both = step_check.launch(
+        dict(spec, jobs=[spec, cspec, dict(tspec, tp=[1, 2]),
+                         dict(spec, steps=1, local_batchnorm=True)]), 2,
+        os.path.join(work, "ranks"), timeout=300)
+    ranks, cranks, tranks, franks = ([r["jobs"][i] for r in both]
+                                     for i in range(4))
+    failed = hold_ranks("ConformerCTC(S) f32", "ctc", ranks, one)
+    n = expect(rank_launches(ranks), 2 * PARALLEL_STEPS,
+               "the ranks' ConformerCTC(S) steps")
+    launches = add(launches, add(n, tuple(one["launches"])))
+    times = {"ctc": (statistics.median(
+        max(r["step_s"][i] for r in ranks)
+        for i in range(1, PARALLEL_STEPS)), one["step_s"][-1])}
+    failed += hold_fault("BatchNorm moments over each rank's own rows",
+                         "ctc", franks, one)
+    launches = add(launches, expect(rank_launches(franks), 2,
+                                    "the planted fault's step"))
+
+    failed += hold_ranks(f"ChunkConformer(S) f32 (t_ref {t_ref}; each half "
+                         f"alone {halves[0]} and {halves[1]})", "chunk",
+                         cranks, cone)
+    n = expect(rank_launches(cranks), 2 * PARALLEL_STEPS,
+               "the ranks' ChunkConformer(S) steps")
+    launches = add(launches, add(n, tuple(cone["launches"])))
+    times["chunk"] = (statistics.median(
+        max(r["step_s"][i] for r in cranks)
+        for i in range(1, PARALLEL_STEPS)), cone["step_s"][-1])
+
+    full = step_check.assemble(tranks)
+    tp_loss = max(abs(r["metrics"][0]["train_loss"]
+                      - tone["metrics"][0]["train_loss"])
+                  / abs(tone["metrics"][0]["train_loss"]) for r in tranks)
+    tp_param = worst_leaf(full, leaves(tone))
+    tp_abs = max(float((full[k] - v).abs().max())
+                 for k, v in leaves(tone).items())
+    sharded = sum(1 for v in tranks[0]["params"].values()
+                  if v["dim"] is not None)
+    log(f"parallel: (1 x 2) tensor parallel ConformerCTC(S), SGD lr {TP_LR} "
+        f"at B=8 x {TRAIN_SECONDS} s: {sharded} of "
+        f"{len(tranks[0]['params'])} parameters sharded; against one "
+        f"process: loss {tp_loss:.3e} relative (bound "
+        f"{PARALLEL_LOSS_REL:g}), the worst parameter {tp_param[0]:.3e} of "
+        f"its largest entry ({tp_param[1]}; bound {TP_PARAM_REL:g}), "
+        f"{tp_abs:.3e} absolute (tests/test_tp.py's lr x 1e-2: "
+        f"{TP_LR * 1e-2:g})")
+    if not (tp_loss <= PARALLEL_LOSS_REL and tp_param[0] <= TP_PARAM_REL
+            and sharded > 0):
+        failed.append("the tensor-parallel step differs from the "
+                      "one-process step")
+    n = expect(rank_launches(tranks), 2, "the tensor-parallel ranks' step")
+    launches = add(launches, add(n, tuple(tone["launches"])))
+    if failed:
+        raise AssertionError(f"parallel: {failed}")
+
+    # (d) one process, world size 1, the default backend for a card
+    nspec = dict(spec, backend=None, init_world_one=True, steps=1)
+    (nccl,) = step_check.launch(nspec, 1, os.path.join(work, "ctc", "nccl"),
+                                timeout=300)
+    nccl_err = abs(nccl["metrics"][0]["train_loss"]
+                   - one["metrics"][0]["train_loss"]) / abs(
+        one["metrics"][0]["train_loss"])
+    log(f"parallel: world size 1 on NCCL (the default on a card), one step "
+        f"of ConformerCTC(S) at B={PARALLEL_B}: loss {nccl_err:.3e} relative "
+        f"to the one-process step without a process group")
+    if nccl_err > 1e-5:
+        raise AssertionError("the NCCL world-1 step differs")
+    launches = add(launches, expect(tuple(nccl["launches"]), 1,
+                                    "the NCCL step"))
+
+    # (c) train_asr under torchrun, eval_am restoring in one process
+    cli_dir = os.path.join(work, "cli")
+    os.makedirs(cli_dir)
+    data_yml = write_corpus(cli_dir)
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_yml = os.path.join(root, "configs", "conformerS.yml")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m",
+         "tensorflowasr_tpu_torch.cli.train_asr", "--data_config", data_yml,
+         "--model_config", model_yml, "--device", "cuda:0",
+         "--dist_backend", "gloo", "--total_steps", "6", "--data_workers",
+         "2"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=root), cwd=cli_dir)
+    t_cli = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun train_asr: rc {run.returncode}, "
+                             f"stderr {run.stderr[-2000:]}")
+    ckpts = sorted(os.listdir(os.path.join(cli_dir, "logs", "checkpoints")))
+    with open(os.path.join(cli_dir, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if ckpts != ["ckpt_000000003.pt", "ckpt_000000006.pt"]:
+        raise AssertionError(f"torchrun train_asr checkpoints {ckpts}")
+    if [m["step"] for m in logged] != [2, 4, 6] or not all(
+            math.isfinite(m["train_loss"]) for m in logged):
+        raise AssertionError(f"torchrun train_asr metrics.jsonl {logged} "
+                             f"(rank 0 alone writes it)")
+
+    def evaluate():
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = eval_am.main(["--data_config", data_yml, "--model_config",
+                               model_yml, "--device", "cuda",
+                               "--max_batches", "2"])
+        return rc, out.getvalue(), err.getvalue()
+
+    (rc, out, err), n = counted(evaluate)
+    if rc != 0 or "no checkpoint found" in err:
+        raise AssertionError(f"cli.eval_am after torchrun: rc {rc}, stderr "
+                             f"{err[-400:]}")
+    result = json.loads(out.strip().splitlines()[-1])
+    if not all(math.isfinite(result[k]) for k in ("phone_cer", "char_cer")):
+        raise AssertionError(f"eval_am after torchrun: {result}")
+    launches = add(launches, expect(n, 2, "eval_am's 2 batches"))
+    log(f"parallel: torchrun --nproc_per_node 2 cli.train_asr (gloo, both "
+        f"ranks on cuda:0, bf16, global B={CLI_B}) 6 steps in {t_cli:.2f} s "
+        f"(train_loss {logged[0]['train_loss']:.3f} -> "
+        f"{logged[-1]['train_loss']:.3f}, {logged[-1]['examples_per_s']:.1f} "
+        f"utterances/s), checkpoints {ckpts}; one-process eval_am restored "
+        f"step 6: {json.dumps(result)}")
+    for name, (two, alone) in times.items():
+        log(f"parallel: {name} f32 step at B={PARALLEL_B} x {TRAIN_SECONDS} s"
+            f": 2 ranks {two * 1e3:.3f} ms, one process {alone * 1e3:.3f} ms "
+            f"on {CARD}; the two ranks share one card, so this is not a "
+            f"scaling figure")
+    log(f"parallel: K1 and K1b launched {launches} (ranks' and one-process "
+        f"train steps, eval_am); phase {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4423,6 +4857,10 @@ def main() -> int:
         block, block_predict = phase_block_stream()
         torch.cuda.empty_cache()
         leaf_wav, exported = phase_leaf_wav_export(cli_dir, chunk_dir)
+        torch.cuda.empty_cache()
+        parallel_dir = os.path.join(work, "parallel")
+        os.makedirs(parallel_dir)
+        parallel = phase_parallel(parallel_dir)
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
@@ -4440,7 +4878,9 @@ def main() -> int:
               "beam and LM phase's predict calls, eval_am, served encodes "
               "and train steps": beam,
               "add_wav_info predict and train calls and the exported "
-              "encoder and picker calls": leaf_wav}
+              "encoder and picker calls": leaf_wav,
+              "data- and tensor-parallel ranks' and one-process train "
+              "steps and eval_am": parallel}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)

@@ -8,6 +8,7 @@ import argparse
 import functools
 import logging
 import os
+import re
 import sys
 from typing import Callable, Iterator, Optional, Tuple, Union
 
@@ -36,11 +37,19 @@ def config_parser(description: str, model_required: bool = True,
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     if device:
-        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                       help="run on the GPU (default; raises without CUDA) "
-                            "or on the CPU")
+        p.add_argument("--device", default="cuda", type=device_flag,
+                       help="cuda (default; raises without CUDA), cuda:N "
+                            "(card N) or cpu")
     p.add_argument("--log_level", default="INFO")
     return p
+
+
+def device_flag(value: str) -> str:
+    """``--device``: "cuda", "cuda:N" or "cpu"."""
+    if not re.fullmatch(r"cpu|cuda(:\d+)?", value):
+        raise argparse.ArgumentTypeError(
+            f"--device must be cuda, cuda:N or cpu, got {value!r}")
+    return value
 
 
 def add_training_flags(p: argparse.ArgumentParser) -> None:

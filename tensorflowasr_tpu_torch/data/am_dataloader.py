@@ -338,13 +338,17 @@ class AMDataLoader:
                   prefetch_depth: int = 0
                   ) -> Iterator[Dict[str, np.ndarray]]:
         """Endless batch iterator. ``prefetch_depth`` > 0 moves batch
-        production to background threads (host prep overlaps device
-        compute)."""
+        production to a background thread (host prep overlaps device
+        compute). One producer thread: :meth:`generate` draws from the
+        list cursor, the carried-over samples and the augmentation stream
+        in turn, so batches from several producers would depend on thread
+        timing, and the ranks of a data-parallel run, which each run this
+        loader from one seed, would see different batches. A batch's wav
+        loading still runs on ``num_workers`` threads."""
         if prefetch_depth > 0:
             return PrefetchIterator(
                 lambda: self.generate(train, num_workers=num_workers),
-                depth=prefetch_depth, num_workers=max(1, num_workers // 4)
-                if num_workers > 4 else 1)
+                depth=prefetch_depth, num_workers=1)
 
         def gen():
             while True:

@@ -18,6 +18,11 @@ Each worker:
   ``cli/common.py``) and iterates it forever, putting only numpy batches on
   the queue (a torch tensor there is refused);
 - forwards its exception to the consumer instead of dying silently.
+
+Each worker has its own bounded queue and the consumer takes from them in
+turn, so the sequence of batches is a function of the workers' seeds and
+shards alone: every rank of a data-parallel run that starts the same
+workers sees the same batches in the same order.
 """
 
 from __future__ import annotations
@@ -78,14 +83,18 @@ class MPBatchIterator:
     def __init__(self, factory: Callable[[int, int], Iterator],
                  num_workers: int = 2, depth: int = 4):
         ctx = mp.get_context("spawn")
-        self._queue = ctx.Queue(maxsize=max(1, depth))
+        n = max(1, num_workers)
+        # ``depth`` batches in flight over all workers, each in its queue
+        self._queues = [ctx.Queue(maxsize=max(1, depth // n))
+                        for _ in range(n)]
         self._stop = ctx.Event()
+        self._turn = 0
         self._procs = [
             ctx.Process(target=_worker_main,
-                        args=(factory, i, num_workers, self._queue,
+                        args=(factory, i, num_workers, self._queues[i],
                               self._stop),
                         daemon=True)
-            for i in range(max(1, num_workers))]
+            for i in range(n)]
         for p in self._procs:
             p.start()
 
@@ -93,27 +102,30 @@ class MPBatchIterator:
         return self
 
     def __next__(self):
+        i = self._turn
         while True:
             try:
-                item = self._queue.get(timeout=0.5)
+                item = self._queues[i].get(timeout=0.5)
             except pyqueue.Empty:
-                if not any(p.is_alive() for p in self._procs):
+                if not self._procs[i].is_alive():
                     raise RuntimeError(
-                        "all data worker processes exited") from None
+                        f"data worker process {i} exited") from None
                 continue
             if isinstance(item, dict) and _ERR_KEY in item:
                 self.close()
                 raise RuntimeError(f"data worker failed:\n{item[_ERR_KEY]}")
+            self._turn = (i + 1) % len(self._queues)
             return item
 
     def close(self) -> None:
         self._stop.set()
         # drain, so that workers blocked on put() see the stop event
-        try:
-            while True:
-                self._queue.get_nowait()
-        except pyqueue.Empty:
-            pass
+        for q in self._queues:
+            try:
+                while True:
+                    q.get_nowait()
+            except pyqueue.Empty:
+                pass
         for p in self._procs:
             p.join(timeout=3)
             if p.is_alive():

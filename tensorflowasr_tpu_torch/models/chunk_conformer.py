@@ -80,6 +80,7 @@ from tensorflowasr_tpu_torch.models.layers import (
     tensor_cache,
 )
 from tensorflowasr_tpu_torch.ops import frontend as fe
+from tensorflowasr_tpu_torch.parallel.mesh import global_max
 from tensorflowasr_tpu_torch.ops.specaug import spec_augment
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
@@ -338,17 +339,18 @@ class StreamableMHA(MultiHeadAttention):
 
     def project_kv(self, y: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, t, d] -> (k, v), each [B, t, H, hd]."""
+        """[B, t, d] -> (k, v), each [B, t, H, hd] (H this rank's heads
+        under tensor parallelism, as in ``MultiHeadAttention``)."""
         b, t, _ = y.shape
-        h, hd = self.num_heads, self.head_size
-        return (self.key(y).view(b, t, h, hd),
-                self.value(y).view(b, t, h, hd))
+        hd = self.head_size
+        return (self.key(y).view(b, t, -1, hd),
+                self.value(y).view(b, t, -1, hd))
 
     def attend(self, q_in: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, lq, _ = q_in.shape
-        h, hd = self.num_heads, self.head_size
-        q = self.query(q_in).view(b, lq, h, hd).transpose(1, 2)
+        hd = self.head_size
+        q = self.query(q_in).view(b, lq, -1, hd).transpose(1, 2)
         k = k.transpose(1, 2)
         v = v.transpose(1, 2)
         logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
@@ -357,7 +359,7 @@ class StreamableMHA(MultiHeadAttention):
             logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
         w = torch.softmax(logits, dim=-1)
         o = torch.matmul(w.to(self.compute_dtype), v.to(self.compute_dtype))
-        return self.out(o.transpose(1, 2).reshape(b, lq, h * hd))
+        return self.out(o.transpose(1, 2).reshape(b, lq, -1))
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -873,6 +875,8 @@ class ChunkConformer(nn.Module):
         self.decoder = ChunkCTCDecoder(cfg.decoder, num_char_classes,
                                        cfg.helper.dmodel, dt)
         self.helper = ContextHelper(cfg.helper, num_phone_classes, dt)
+        # the data-parallel group t_ref is reduced over (parallel/mesh.py)
+        self.data_group = None
 
     @property
     def phone_blank(self) -> int:
@@ -921,8 +925,12 @@ class ChunkConformer(nn.Module):
                                            self.phone_blank, max_pick)
         t_ref = None
         if max_pick is None and label_width is not None:
-            t_ref = torch.clamp(counts.max().clamp_min(label_width), 1,
-                                picked_f.shape[1])
+            # the max over the global batch: under data parallelism the
+            # ranks' local maxima of the picks and the labels (the frame
+            # count T is the bucket's, the same on every rank)
+            t_ref = global_max(torch.clamp(
+                counts.max().clamp_min(label_width), 1, picked_f.shape[1]),
+                self.data_group)
         # the JAX package's order, so that BatchNorm running statistics
         # move in the same sequence
         _, helper_out = self.helper.phone_call(extra_phones)

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflowasr_tpu_torch.parallel.mesh import global_sum
+
 NORM_EPS = 1e-3          # Keras LayerNormalization / BatchNormalization
 
 
@@ -86,15 +88,25 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``shard`` = (rank, size): ``x`` is slice ``rank`` of ``size``
+        equal slices of its last axis (a tensor-parallel FFN hidden); the
+        mask is drawn at the full width and sliced, so every rank of the
+        ``model`` axis keeps its generator in step with the others."""
         if not self.training or self.rate == 0.0:
             return x
         if self.generator is None:
             raise RuntimeError(
                 "training-mode dropout needs a generator: call "
                 "set_generator(model, torch.Generator(device=...)) first")
-        keep = torch.rand(x.shape, generator=self.generator,
+        shape = x.shape
+        if shard is not None:
+            shape = (*shape[:-1], shape[-1] * shard[1])
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) >= self.rate
+        if shard is not None:
+            keep = keep.chunk(shard[1], dim=-1)[shard[0]]
         return x * keep.to(x.dtype) / (1.0 - self.rate)
 
 
@@ -122,7 +134,15 @@ class BatchNorm(nn.Module):
     ``track_stats`` is off (a recomputed forward under ``remat_blocks`` must
     not count twice). Eval mode ignores the mask.
     ``torch.nn.functional.batch_norm`` is not used: it records the unbiased
-    variance."""
+    variance.
+
+    With a ``data_group`` (``parallel/mesh.py::set_data_group``) the
+    moments are those of the global batch: the per-channel sums of x and
+    x^2 and the row count are all-reduced over the group before the mean
+    and the variance are formed (the gradient flows back through the
+    all-reduce), so every rank normalizes alike and its running statistics
+    move alike. ``nn.SyncBatchNorm`` is not used: it records the unbiased
+    variance and takes epsilon 1e-5."""
 
     MOMENTUM = 0.99
 
@@ -133,6 +153,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
         self.track_stats = True
+        self.data_group = None
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -140,15 +161,7 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = tuple(range(x.dim() - 1))
-            if mask is None:
-                mean = x.mean(dim=axes)
-                mean_sq = (x * x).mean(dim=axes)
-            else:
-                w = mask.to(torch.float32).expand(*x.shape[:-1], 1)
-                count = w.sum()
-                mean = (x * w).sum(dim=axes) / count
-                mean_sq = (x * x * w).sum(dim=axes) / count
+            mean, mean_sq = self._moments(x, mask)
             var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             if self.track_stats:
                 with torch.no_grad():
@@ -156,6 +169,24 @@ class BatchNorm(nn.Module):
                     self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
         mul = torch.rsqrt(var + NORM_EPS) * self.weight
         return (x - mean) * mul + self.bias
+
+    def _moments(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(mean, E[x^2]) over the rows (the masked ones) of every rank of
+        the data group: one all-reduce of [sum x, sum x^2, rows], the
+        identity without a group."""
+        axes = tuple(range(x.dim() - 1))
+        if mask is None:
+            sx, sxx = x.sum(dim=axes), (x * x).sum(dim=axes)
+            rows = x.new_full((1,), float(x[..., 0].numel()))
+        else:
+            w = mask.to(torch.float32).expand(*x.shape[:-1], 1)
+            sx, sxx = (x * w).sum(dim=axes), (x * x * w).sum(dim=axes)
+            rows = w.sum().reshape(1)
+        total = global_sum(torch.cat([sx, sxx, rows]), self.data_group,
+                           differentiable=True)
+        c = x.shape[-1]
+        count = total[2 * c]
+        return total[:c] / count, total[c:2 * c] / count
 
 
 class DepthwiseConv1D(nn.Module):
@@ -275,9 +306,11 @@ class FFModule(nn.Module):
         self.ffn1 = Dense(input_dim, 4 * input_dim, dtype)
         self.ffn2 = Dense(4 * input_dim, input_dim, dtype)
         self.dropout = Dropout(dropout)
+        # (rank, size) when ffn1 is column-parallel (parallel/tp.py)
+        self.hidden_shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.dropout(F.silu(self.ffn1(self.ln(x))))
+        y = self.dropout(F.silu(self.ffn1(self.ln(x))), self.hidden_shard)
         y = self.dropout(self.ffn2(y))
         return x + self.fc_factor * y
 
@@ -315,17 +348,19 @@ class MultiHeadAttention(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, lq, _ = inputs_q.shape
         lk = inputs_kv.shape[1]
-        h, hd = self.num_heads, self.head_size
-        q = self.query(inputs_q).view(b, lq, h, hd).transpose(1, 2)
-        k = self.key(inputs_kv).view(b, lk, h, hd).transpose(1, 2)
-        v = self.value(inputs_kv).view(b, lk, h, hd).transpose(1, 2)
+        hd = self.head_size
+        # the head count is read from the projection's width: a
+        # column-parallel projection (parallel/tp.py) holds this rank's heads
+        q = self.query(inputs_q).view(b, lq, -1, hd).transpose(1, 2)
+        k = self.key(inputs_kv).view(b, lk, -1, hd).transpose(1, 2)
+        v = self.value(inputs_kv).view(b, lk, -1, hd).transpose(1, 2)
         logits = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
         logits = logits.to(torch.float32)
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
         w = torch.softmax(logits, dim=-1)
         o = torch.matmul(w.to(self.compute_dtype), v)       # [b, h, lq, hd]
-        return self.out(o.transpose(1, 2).reshape(b, lq, h * hd))
+        return self.out(o.transpose(1, 2).reshape(b, lq, -1))
 
 
 class MHSAModule(nn.Module):

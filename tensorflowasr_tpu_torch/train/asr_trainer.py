@@ -14,7 +14,14 @@ Batch dict (all static shapes, the loader's buckets pad them):
   wav [B, T] f32 or i16, input_length [B] i32 (encoder frames),
   phones [B, L] i32, phone_length [B] i32, chars [B, U] i32.
 
-Data parallelism over several cards comes with the parallelism slice.
+Data parallelism: with a data group (``parallel/mesh.py``; the trainer
+makes a ``data`` mesh over every rank when a process group exists) each
+rank holds its rows of the global batch, and every batch reduction is
+global: the BatchNorm moments, the balance terms of ``mask_loss`` (their
+sums all-reduced before dividing), the batch mean (each rank's sum over the
+global batch size) and the logged metrics. The gradients are summed over
+the group by the optimizer (``train/state.py``), so an N-rank step equals
+the one-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -30,8 +37,9 @@ from tensorflowasr_tpu_torch.models.conformer import (
     ConformerCTC,
     build_model,
 )
-from tensorflowasr_tpu_torch.models.layers import set_generator
 from tensorflowasr_tpu_torch.ops.ctc import ctc_loss
+from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowasr_tpu_torch.parallel.mesh import global_sum
 from tensorflowasr_tpu_torch.serve import engines
 from tensorflowasr_tpu_torch.train.base import TrainerBase
 from tensorflowasr_tpu_torch.train.state import ASRTrainState, make_optimizer
@@ -44,22 +52,29 @@ Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
 
 
-def mask_loss(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def mask_loss(labels: torch.Tensor, logits: torch.Tensor,
+              group=None) -> torch.Tensor:
     """Per-example mean cross entropy plus two batch-global balance terms
     (the mean over non-pad positions and the mean over pad positions),
-    broadcast back onto the batch. labels [B, U], logits [B, U, V] -> [B]."""
+    broadcast back onto the batch. labels [B, U], logits [B, U, V] -> [B].
+    With a data ``group`` the balance terms are those of the global batch:
+    their sums and counts are all-reduced (one collective, the gradient
+    flowing back through it) before dividing."""
     ce = F.cross_entropy(logits.to(torch.float32).transpose(1, 2),
                          labels.long(), reduction="none")
     need = (labels != 0).to(torch.float32)
     zero = (labels == 0).to(torch.float32)
-    need_loss = torch.sum(ce * need) / (torch.sum(need) + 1e-6)
-    zero_loss = torch.sum(ce * zero) / (torch.sum(zero) + 1e-6)
+    sums = global_sum(torch.stack([torch.sum(ce * need), torch.sum(ce * zero),
+                                   torch.sum(need), torch.sum(zero)]),
+                      group, differentiable=True)
+    need_loss = sums[0] / (sums[2] + 1e-6)
+    zero_loss = sums[1] / (sums[3] + 1e-6)
     return ce.mean(dim=-1) + need_loss + zero_loss
 
 
-def ctc_acc(labels: torch.Tensor, decoded: torch.Tensor) -> torch.Tensor:
-    """Token accuracy over non-pad label positions; the decoded ids are
-    padded or cut to the labels' width."""
+def _ctc_acc_sum(labels: torch.Tensor, decoded: torch.Tensor
+                 ) -> torch.Tensor:
+    """The sum over the batch of each example's token accuracy."""
     u, t = labels.shape[1], decoded.shape[1]
     if t < u:
         decoded = F.pad(decoded, (0, u - t))
@@ -67,19 +82,35 @@ def ctc_acc(labels: torch.Tensor, decoded: torch.Tensor) -> torch.Tensor:
     maskv = (labels != 0).to(torch.float32)
     match = (labels == pred).to(torch.float32)
     per_ex = torch.sum(match * maskv, -1) / (torch.sum(maskv, -1) + 1e-6)
-    return per_ex.mean()
+    return per_ex.sum()
 
 
-def translate_acc(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def ctc_acc(labels: torch.Tensor, decoded: torch.Tensor) -> torch.Tensor:
+    """Token accuracy over non-pad label positions, averaged per example;
+    the decoded ids are padded or cut to the labels' width."""
+    return _ctc_acc_sum(labels, decoded) / labels.shape[0]
+
+
+def _translate_match(labels: torch.Tensor, logits: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(matches, positions) over the non-pad label positions."""
     pred = torch.argmax(logits, -1)[:, :labels.shape[1]]
     need = (labels != 0).to(torch.float32)
     match = (labels == pred).to(torch.float32)
-    return torch.sum(match * need) / (torch.sum(need) + 1e-6)
+    return torch.sum(match * need), torch.sum(need)
 
 
-def losses_from_outputs(outputs, batch: Batch, blank_id: int
-                        ) -> Tuple[torch.Tensor, Metrics]:
-    """``train_forward``'s outputs -> (total loss, the five metrics)."""
+def translate_acc(labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    match, need = _translate_match(labels, logits)
+    return match / (need + 1e-6)
+
+
+def losses_from_outputs(outputs, batch: Batch, blank_id: int,
+                        group=None) -> Tuple[torch.Tensor, Metrics]:
+    """``train_forward``'s outputs -> (total loss, the five metrics). With a
+    data ``group`` the total is this rank's share of the global mean (its
+    rows' sum over the global batch size), so the ranks' gradients add up
+    to the global one, and the metrics are those of the global batch."""
     _, ctc_logits, decoded, label_out, ctc_out = outputs
     phones, chars = batch["phones"], batch["chars"]
     u = chars.shape[1]
@@ -92,37 +123,43 @@ def losses_from_outputs(outputs, batch: Batch, blank_id: int
         blank_id=blank_id, prob_floor=1e-7)
     # the decoded ids keep the encoder's width T'; only the first U
     # positions of that pass are scored
-    tl_label = mask_loss(chars, label_out[:, :u])
-    tl_ctc = mask_loss(chars, ctc_out[:, :u])
+    tl_label = mask_loss(chars, label_out[:, :u], group)
+    tl_ctc = mask_loss(chars, ctc_out[:, :u], group)
     translate_loss = tl_label * 2.0 + tl_ctc
-    total = torch.mean(per_ex_ctc + translate_loss * 2.0)
+    per_ex = per_ex_ctc + translate_loss * 2.0
     with torch.no_grad():
-        metrics = {
-            "ctc_loss": per_ex_ctc.mean(),
-            "translate_loss": translate_loss.mean(),
-            "train_loss": total.detach(),
-            "ctc_acc": ctc_acc(phones, decoded),
-            "translate_acc": translate_acc(chars, ctc_out),
-        }
+        match, need = _translate_match(chars, ctc_out)
+        sums = global_sum(torch.stack([
+            per_ex_ctc.sum(), translate_loss.sum(), per_ex.sum(),
+            _ctc_acc_sum(phones, decoded), match, need,
+            per_ex.new_tensor(float(per_ex.shape[0]))]), group)
+    b = sums[6]
+    total = torch.sum(per_ex) / b
+    metrics = {"ctc_loss": sums[0] / b, "translate_loss": sums[1] / b,
+               "train_loss": sums[2] / b, "ctc_acc": sums[3] / b,
+               "translate_acc": sums[4] / (sums[5] + 1e-6)}
     return total, metrics
 
 
-def loss_and_metrics(model: ConformerCTC, batch: Batch, blank_id: int
-                     ) -> Tuple[torch.Tensor, Metrics]:
+def loss_and_metrics(model: ConformerCTC, batch: Batch, blank_id: int,
+                     group=None) -> Tuple[torch.Tensor, Metrics]:
     """Forward in the model's current mode (training: dropout, batch
-    statistics, running-statistics update) and the losses."""
+    statistics, running-statistics update) and the losses, over the data
+    ``group``'s global batch when one is given."""
     outputs = model.train_forward(batch["wav"], batch["phones"],
                                   batch["input_length"])
-    return losses_from_outputs(outputs, batch, blank_id)
+    return losses_from_outputs(outputs, batch, blank_id, group)
 
 
 def make_train_step(blank_id: int,
-                    mark: Optional[Callable[[str], None]] = None
-                    ) -> Callable:
+                    mark: Optional[Callable[[str], None]] = None,
+                    group=None) -> Callable:
     """Returns (state, batch) -> (state, metrics). The state is updated in
     place and handed back; the metrics are device scalars. ``mark``, when
     given, is called with "forward", "loss", "backward" and "optimizer" as
-    each stage has been enqueued (for timing a step's stages)."""
+    each stage has been enqueued (for timing a step's stages). ``group``
+    is the data group the losses reduce over (the model's BatchNorms and
+    the optimizer carry it too)."""
     mark = mark or (lambda stage: None)
 
     def step(state: ASRTrainState, batch: Batch
@@ -133,7 +170,7 @@ def make_train_step(blank_id: int,
         outputs = model.train_forward(batch["wav"], batch["phones"],
                                       batch["input_length"])
         mark("forward")
-        total, metrics = losses_from_outputs(outputs, batch, blank_id)
+        total, metrics = losses_from_outputs(outputs, batch, blank_id, group)
         # the char logits at the encoder's width are the step's largest
         # tensor and nothing in the backward needs them whole
         del outputs
@@ -148,15 +185,16 @@ def make_train_step(blank_id: int,
     return step
 
 
-def make_eval_step(blank_id: int) -> Callable:
-    """Returns (state, batch) -> metrics, in eval mode without gradients."""
+def make_eval_step(blank_id: int, group=None) -> Callable:
+    """Returns (state, batch) -> metrics, in eval mode without gradients
+    (over the data ``group``'s global batch when one is given)."""
 
     @torch.no_grad()
     def step(state: ASRTrainState, batch: Batch) -> Metrics:
         model = state.model
         if model.training:
             model.eval()
-        return loss_and_metrics(model, batch, blank_id)[1]
+        return loss_and_metrics(model, batch, blank_id, group)[1]
 
     return step
 
@@ -200,16 +238,23 @@ class CTCTrainer(TrainerBase):
     """Config-driven trainer: builds the model, the optimizer and the steps;
     the fit / eval / checkpoint loop lives in :class:`TrainerBase`. Runs on
     ``device`` ("cuda" unless asked for "cpu"; a CUDA request without a card
-    raises)."""
+    raises).
+
+    ``mesh`` defaults to ``parallel.mesh.make_data_mesh(batch_size)``: a
+    ``data`` mesh over every rank when a process group exists (each rank
+    then trains on its rows of every batch, and the step equals the
+    one-process step on the whole batch), None in one process."""
 
     def __init__(self, config, num_phone_classes: int,
                  num_char_classes: int, blank_id: int,
                  device: Union[str, torch.device] = "cuda",
                  use_warmup: bool = False,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh=None):
         self.config = config
         self.device = resolve_device(device)
         rc = config["running_config"] or {}
+        self.set_mesh(mesh if mesh is not None else mesh_lib.make_data_mesh(
+            int(cfg_get(rc, "batch_size", 16)), self.device))
         self.model_cfg = ConformerConfig.from_user_config(config,
                                                           compute_dtype)
         if blank_id != num_phone_classes - 1:
@@ -220,8 +265,8 @@ class CTCTrainer(TrainerBase):
         self.num_phone_classes = num_phone_classes
         self.num_char_classes = num_char_classes
         self.use_warmup = use_warmup
-        self.train_step = make_train_step(blank_id)
-        self.eval_step = make_eval_step(blank_id)
+        self.train_step = make_train_step(blank_id, group=self.group)
+        self.eval_step = make_eval_step(blank_id, self.group)
         self.predict_step = make_predict_step(blank_id)
         self.log_interval = cfg_get(rc, "log_interval_steps", 100)
         self.save_interval = cfg_get(rc, "save_interval_steps", 500)
@@ -231,17 +276,16 @@ class CTCTrainer(TrainerBase):
         self.state: Optional[ASRTrainState] = None
 
     def init_state(self, seed: int = 0) -> ASRTrainState:
-        """Seeded random weights, a fresh optimizer and a dropout generator
-        seeded with ``seed`` on the trainer's device."""
+        """Seeded random weights (broadcast from data rank 0), a fresh
+        optimizer and a dropout generator on the trainer's device, seeded
+        with ``seed`` (and this rank's data rank, ``rank_seed``)."""
         model = build_model(self.model_cfg, self.num_phone_classes,
                             self.num_char_classes, device=self.device,
                             seed=seed)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        set_generator(model, generator)
         optimizer = make_optimizer(
             model.parameters(), dict(self.config["optimizer_config"] or {}),
             dmodel=self.model_cfg.dmodel, use_warmup=self.use_warmup)
-        self.state = ASRTrainState(model, optimizer, generator)
+        self.state = self.new_state(model, optimizer, seed)
         n = sum(p.numel() for p in model.parameters())
         logger.info("model params: %s", f"{n:,}")
         return self.state

@@ -9,6 +9,12 @@ attributes.
 The loop never waits for the device between steps: the step counter lives
 on the host, and the metrics (device scalars) are fetched only at log steps,
 in one copy.
+
+Under data parallelism (a trainer's ``mesh``, ``parallel/mesh.py``) every
+rank runs the same loader and keeps its rows of each batch; the metrics are
+global, only global rank 0 writes ``metrics.jsonl`` and the checkpoints
+(the format of one process, so any number of ranks, or one, restores
+them), and every rank restores. Throughput counts the global batch.
 """
 
 from __future__ import annotations
@@ -21,8 +27,13 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from tensorflowasr_tpu_torch.models.layers import set_generator
+from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowasr_tpu_torch.parallel.multihost import process_index
 from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
+from tensorflowasr_tpu_torch.train.state import ASRTrainState
 from tensorflowasr_tpu_torch.utils.config import cfg_get
 from tensorflowasr_tpu_torch.utils.telemetry import ThroughputMeter
 
@@ -41,10 +52,34 @@ def fetch_mean(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
 class TrainerBase:
     """Requires subclass attributes: state, device, outdir, train_step,
     eval_step, log_interval, save_interval, eval_interval, and a
-    ``sample_rate`` for throughput accounting (0 disables it)."""
+    ``sample_rate`` for throughput accounting (0 disables it). A
+    data-parallel subclass calls :meth:`set_mesh` and builds its state with
+    :meth:`new_state`."""
 
     sample_rate: int = 0
     _ckpt_mgr = None
+    mesh = None        # a DeviceMesh whose data axes split the batch
+    group = None       # the process group of those axes
+    seed = 0
+
+    def set_mesh(self, mesh) -> None:
+        self.mesh = mesh
+        self.group = mesh_lib.data_group(mesh)
+
+    def new_state(self, model: torch.nn.Module, optimizer,
+                  seed: int) -> ASRTrainState:
+        """The train state of a freshly built ``model``: its weights
+        broadcast from data rank 0, the data group handed to its BatchNorms
+        and to the optimizer, and a generator for dropout and SpecAugment
+        seeded with ``rank_seed(seed, data rank)``."""
+        self.seed = seed
+        generator = torch.Generator(device=self.device).manual_seed(
+            mesh_lib.rank_seed(seed, mesh_lib.data_rank(self.mesh)))
+        set_generator(model, generator)
+        mesh_lib.set_data_group(model, self.group)
+        optimizer.group = self.group
+        return mesh_lib.replicate(ASRTrainState(model, optimizer, generator),
+                                  self.mesh)
 
     @property
     def checkpoint_manager(self) -> CheckpointManager:
@@ -54,22 +89,31 @@ class TrainerBase:
         return self._ckpt_mgr
 
     def save(self) -> None:
-        self.checkpoint_manager.save(int(self.state.step), self.state)
+        """Every rank takes part (the pending gradients of an accumulation
+        are reduced); global rank 0 writes, and the others wait for it."""
+        saved = self.state.state_dict()
+        if process_index() == 0:
+            self.checkpoint_manager.write(int(self.state.step), saved)
+        if self.group is not None:
+            dist.barrier()
 
     def restore(self) -> bool:
-        return self.checkpoint_manager.restore_latest(self.state) is not None
+        """Every rank loads the newest checkpoint. Under data parallelism
+        each then re-seeds its generator from (seed, its data rank, the
+        step) rather than keep the saved one, which is rank 0's."""
+        if self.checkpoint_manager.restore_latest(self.state) is None:
+            return False
+        if self.group is not None:
+            self.state.generator.manual_seed(mesh_lib.rank_seed(
+                self.seed, mesh_lib.data_rank(self.mesh), self.state.step))
+        return True
 
     def _prepare_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """numpy batch -> tensors on the trainer's device. The length
-        vectors the CTC losses read on the host also stay behind as
-        ``*_host`` CPU tensors, so the step needs no copy back for them."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if k.endswith("_length"):
-                out[k + "_host"] = t
-            out[k] = t.to(self.device, non_blocking=True)
-        return out
+        """numpy batch -> this rank's rows as tensors on the trainer's
+        device (every row in one process). The length vectors the CTC
+        losses read on the host also stay behind as ``*_host`` CPU
+        tensors, so the step needs no copy back for them."""
+        return mesh_lib.shard_batch(batch, self.mesh, self.device)
 
     def fit(self, train_iter: Iterator, eval_iter: Optional[Iterator] = None,
             total_steps: int = 1000, metrics_path: Optional[str] = None):
@@ -82,12 +126,22 @@ class TrainerBase:
         accum = []
         meter = ThroughputMeter()
         step0 = int(self.state.step)
-        with open(metrics_path, "a") as mf:
+        writer = process_index() == 0
+        mf = open(metrics_path, "a") if writer else None
+
+        def record(m: dict) -> None:
+            if mf is not None:
+                mf.write(json.dumps(m) + "\n")
+                mf.flush()
+
+        try:
             for i in range(total_steps):
-                batch = self._prepare_batch(next(train_iter))
+                host_batch = next(train_iter)
+                batch = self._prepare_batch(host_batch)
                 self.state, metrics = self.train_step(self.state, batch)
-                if self.sample_rate and "wav" in batch:
-                    b, t = batch["wav"].shape
+                if self.sample_rate and "wav" in host_batch:
+                    # the global batch: every rank ran its rows of it
+                    b, t = np.shape(host_batch["wav"])
                     meter.update(b, b * t / self.sample_rate)
                 accum.append(metrics)
                 step = step0 + i + 1
@@ -96,18 +150,19 @@ class TrainerBase:
                     m.update(step=step, wall_s=time.time() - t0,
                              **meter.rates())
                     logger.info("train %s", m)
-                    mf.write(json.dumps(m) + "\n")
-                    mf.flush()
+                    record(m)
                     accum = []
                 if eval_iter is not None and step % self.eval_interval == 0:
                     em = self.evaluate(eval_iter)
                     if em:
                         em.update(step=step, split="eval")
                         logger.info("eval %s", em)
-                        mf.write(json.dumps(em) + "\n")
-                        mf.flush()
+                        record(em)
                 if step % self.save_interval == 0:
                     self.save()
+        finally:
+            if mf is not None:
+                mf.close()
         return self.state
 
     def evaluate(self, eval_iter, max_batches: int = 50) -> dict:

@@ -34,11 +34,15 @@ class CheckpointManager:
                       map(_NAME.match, os.listdir(self.directory)) if m)
 
     def save(self, step: int, state: Any) -> None:
+        self.write(step, state.state_dict())
+
+    def write(self, step: int, state_dict: dict) -> None:
+        """Write a state's ``state_dict()`` as step ``step``'s checkpoint."""
         os.makedirs(self.directory, exist_ok=True)
         path = self._path(step)
         tmp = f"{path}.tmp.{os.getpid()}"
         try:
-            torch.save(state.state_dict(), tmp)
+            torch.save(state_dict, tmp)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):

@@ -33,6 +33,13 @@ the device in a step.
 
 The JAX package unrolls its scanned stacks for training (``scan_unroll``);
 eager PyTorch runs every stack unrolled, so there is nothing to choose.
+
+Data parallelism, as in ``train/asr_trainer.py``: with a data group each
+rank holds its rows, ``t_ref`` is the global batch's (the model
+all-reduces it, so the helper, the decoder, their attention keys and
+their masked BatchNorm statistics see the global width), the ``sum`` /
+``mean`` reduction and the metrics are taken over the global batch, and
+the optimizer sums the gradients over the group.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from tensorflowasr_tpu_torch.models.chunk_conformer import (
     ChunkConformerConfig,
     build_chunk_model,
 )
-from tensorflowasr_tpu_torch.models.layers import set_generator
 from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode, ctc_loss
+from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
+from tensorflowasr_tpu_torch.parallel.mesh import global_sum
 from tensorflowasr_tpu_torch.train.base import TrainerBase
 from tensorflowasr_tpu_torch.train.state import ASRTrainState, make_optimizer
 from tensorflowasr_tpu_torch.utils.config import cfg_get
@@ -68,16 +76,22 @@ def _check(name: str, value: str, allowed) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
-def chunk_ctc_acc(labels: torch.Tensor, decoded: torch.Tensor
-                  ) -> torch.Tensor:
-    """Token match over the non-pad label positions of the shorter of the
-    two widths, averaged per example, then over the batch."""
+def _chunk_ctc_acc_sum(labels: torch.Tensor, decoded: torch.Tensor
+                       ) -> torch.Tensor:
+    """The sum over the batch of each example's token match."""
     t = min(labels.shape[1], decoded.shape[1])
     lab, pred = labels[:, :t], decoded[:, :t]
     mask = (lab != 0).to(torch.float32)
     match = (lab == pred).to(torch.float32)
     per_ex = torch.sum(match * mask, -1) / (torch.sum(mask, -1) + 1e-6)
-    return per_ex.mean()
+    return per_ex.sum()
+
+
+def chunk_ctc_acc(labels: torch.Tensor, decoded: torch.Tensor
+                  ) -> torch.Tensor:
+    """Token match over the non-pad label positions of the shorter of the
+    two widths, averaged per example, then over the batch."""
+    return _chunk_ctc_acc_sum(labels, decoded) / labels.shape[0]
 
 
 def _host(batch: Batch, key: str) -> torch.Tensor:
@@ -93,9 +107,12 @@ def losses_from_outputs(fwd: Dict[str, Optional[torch.Tensor]],
                         batch: Batch, num_phone_classes: int,
                         num_char_classes: int,
                         txt_ctc_length: str = "padded",
-                        loss_reduction: str = "sum"
+                        loss_reduction: str = "sum", group=None
                         ) -> Tuple[torch.Tensor, Metrics]:
-    """``train_forward``'s outputs -> (total loss, the seven metrics)."""
+    """``train_forward``'s outputs -> (total loss, the seven metrics). With
+    a data ``group`` the total is this rank's share of the global sum or
+    mean (the ranks' gradients add up to the global one) and the metrics
+    are the global batch's."""
     phone_blank, char_blank = num_phone_classes - 1, num_char_classes - 1
     counts, txt_logits = fwd["picked_counts"], fwd["txt_logits"]
     phone_loss = ctc_loss(fwd["phone_logits"], _host(batch, "input_length"),
@@ -118,7 +135,6 @@ def losses_from_outputs(fwd: Dict[str, Optional[torch.Tensor]],
                          _host(batch, "extra_char_length"),
                          blank_id=char_blank, prob_floor=1e-7)
     per_ex = phone_loss + txt_loss + help_loss
-    total = per_ex.sum() if loss_reduction == "sum" else per_ex.mean()
     with torch.no_grad():
         phone_dec, _ = ctc_greedy_decode(fwd["phone_logits"],
                                          batch["input_length"], phone_blank)
@@ -126,43 +142,48 @@ def losses_from_outputs(fwd: Dict[str, Optional[torch.Tensor]],
         help_dec, _ = ctc_greedy_decode(fwd["help_logits"],
                                         batch["extra_phone_length"],
                                         char_blank)
-        metrics = {
-            "phone_loss": phone_loss.mean(),
-            "txt_loss": txt_loss.mean(),
-            "help_loss": help_loss.mean(),
-            "train_loss": per_ex.mean(),
-            "phone_acc": chunk_ctc_acc(batch["phones"], phone_dec),
-            "txt_acc": chunk_ctc_acc(batch["chars"], txt_dec),
-            "help_acc": chunk_ctc_acc(batch["extra_chars"], help_dec),
-        }
+        sums = global_sum(torch.stack([
+            phone_loss.sum(), txt_loss.sum(), help_loss.sum(), per_ex.sum(),
+            _chunk_ctc_acc_sum(batch["phones"], phone_dec),
+            _chunk_ctc_acc_sum(batch["chars"], txt_dec),
+            _chunk_ctc_acc_sum(batch["extra_chars"], help_dec),
+            per_ex.new_tensor(float(per_ex.shape[0]))]), group)
+        b = sums[7]
+        metrics = dict(zip(("phone_loss", "txt_loss", "help_loss",
+                            "train_loss", "phone_acc", "txt_acc",
+                            "help_acc"), sums[:7] / b))
+    total = per_ex.sum() if loss_reduction == "sum" else per_ex.sum() / b
     return total, metrics
 
 
 def loss_and_metrics(model: ChunkConformer, batch: Batch,
                      max_pick: Optional[int] = None,
                      txt_ctc_length: str = "padded",
-                     loss_reduction: str = "sum"
+                     loss_reduction: str = "sum", group=None
                      ) -> Tuple[torch.Tensor, Metrics]:
     """Forward in the model's current mode (training: dropout, SpecAugment,
-    batch statistics and their running update) and the losses."""
+    batch statistics and their running update) and the losses, over the
+    data ``group``'s global batch when one is given."""
     fwd = model.train_forward(batch["wav"], batch["extra_phones"], max_pick,
                               label_width=label_width(batch))
     return losses_from_outputs(fwd, batch, model.num_phone_classes,
                                model.num_char_classes, txt_ctc_length,
-                               loss_reduction)
+                               loss_reduction, group)
 
 
 def make_chunk_train_step(max_pick: Optional[int] = None,
                           txt_ctc_length: str = "padded",
                           loss_reduction: str = "sum",
-                          mark: Optional[Callable[[str], None]] = None
-                          ) -> Callable:
+                          mark: Optional[Callable[[str], None]] = None,
+                          group=None) -> Callable:
     """Returns (state, batch) -> (state, metrics): forward in training
     mode, the loss, backward and the optimizer's step (Adam, with the
     clipping and accumulation ``optimizer_config`` sets). The state is
     updated in place and handed back; the metrics are device scalars.
     ``mark``, when given, is called with "forward", "loss", "backward" and
-    "optimizer" as each stage has been enqueued."""
+    "optimizer" as each stage has been enqueued. ``group`` is the data
+    group the losses reduce over (the model and the optimizer carry it
+    too)."""
     _check("txt_ctc_length", txt_ctc_length, TXT_DECODE_LENGTHS)
     _check("loss_reduction", loss_reduction, LOSS_REDUCTIONS)
     mark = mark or (lambda stage: None)
@@ -177,7 +198,7 @@ def make_chunk_train_step(max_pick: Optional[int] = None,
         mark("forward")
         total, metrics = losses_from_outputs(
             fwd, batch, model.num_phone_classes, model.num_char_classes,
-            txt_ctc_length, loss_reduction)
+            txt_ctc_length, loss_reduction, group)
         del fwd
         mark("loss")
         total.backward()
@@ -191,8 +212,10 @@ def make_chunk_train_step(max_pick: Optional[int] = None,
 
 
 def make_chunk_eval_step(max_pick: Optional[int] = None,
-                         txt_ctc_length: str = "padded") -> Callable:
-    """Returns (state, batch) -> metrics, in eval mode without gradients."""
+                         txt_ctc_length: str = "padded",
+                         group=None) -> Callable:
+    """Returns (state, batch) -> metrics, in eval mode without gradients
+    (over the data ``group``'s global batch when one is given)."""
     _check("txt_ctc_length", txt_ctc_length, TXT_DECODE_LENGTHS)
 
     @torch.no_grad()
@@ -200,7 +223,8 @@ def make_chunk_eval_step(max_pick: Optional[int] = None,
         model = state.model
         if model.training:
             model.eval()
-        return loss_and_metrics(model, batch, max_pick, txt_ctc_length)[1]
+        return loss_and_metrics(model, batch, max_pick, txt_ctc_length,
+                                group=group)[1]
 
     return step
 
@@ -242,15 +266,18 @@ class ChunkTrainer(TrainerBase):
     and the steps; the fit / eval / checkpoint loop lives in
     :class:`TrainerBase`. Reads ``running_config.txt_ctc_length`` and
     ``loss_reduction``. Runs on ``device`` ("cuda" unless asked for "cpu";
-    a CUDA request without a card raises)."""
+    a CUDA request without a card raises). ``mesh`` as in ``CTCTrainer``:
+    a ``data`` mesh over every rank when a process group exists."""
 
     def __init__(self, config, num_phone_classes: int,
                  num_char_classes: int, max_pick: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh=None):
         self.config = config
         self.device = resolve_device(device)
         rc = config["running_config"] or {}
+        self.set_mesh(mesh if mesh is not None else mesh_lib.make_data_mesh(
+            int(cfg_get(rc, "batch_size", 16)), self.device))
         self.model_cfg = ChunkConformerConfig.from_user_config(
             config, compute_dtype)
         self.num_phone_classes = num_phone_classes
@@ -259,8 +286,10 @@ class ChunkTrainer(TrainerBase):
         self.txt_ctc_length = cfg_get(rc, "txt_ctc_length", "padded")
         self.loss_reduction = cfg_get(rc, "loss_reduction", "sum")
         self.train_step = make_chunk_train_step(
-            max_pick, self.txt_ctc_length, self.loss_reduction)
-        self.eval_step = make_chunk_eval_step(max_pick, self.txt_ctc_length)
+            max_pick, self.txt_ctc_length, self.loss_reduction,
+            group=self.group)
+        self.eval_step = make_chunk_eval_step(max_pick, self.txt_ctc_length,
+                                              self.group)
         self.log_interval = cfg_get(rc, "log_interval_steps", 100)
         self.save_interval = cfg_get(rc, "save_interval_steps", 500)
         self.eval_interval = cfg_get(rc, "eval_interval_steps", 500)
@@ -269,18 +298,17 @@ class ChunkTrainer(TrainerBase):
         self.state: Optional[ASRTrainState] = None
 
     def init_state(self, seed: int = 0) -> ASRTrainState:
-        """Seeded random weights, a fresh optimizer and a generator for
-        dropout and SpecAugment seeded with ``seed`` on the trainer's
-        device."""
+        """Seeded random weights (broadcast from data rank 0), a fresh
+        optimizer and a generator for dropout and SpecAugment on the
+        trainer's device, seeded with ``seed`` (and this rank's data rank,
+        ``rank_seed``)."""
         model = build_chunk_model(self.model_cfg, self.num_phone_classes,
                                   self.num_char_classes, device=self.device,
                                   seed=seed)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        set_generator(model, generator)
         optimizer = make_optimizer(
             model.parameters(), dict(self.config["optimizer_config"] or {}),
             dmodel=self.model_cfg.dmodel)
-        self.state = ASRTrainState(model, optimizer, generator)
+        self.state = self.new_state(model, optimizer, seed)
         n = sum(p.numel() for p in model.parameters())
         logger.info("model params: %s", f"{n:,}")
         return self.state
