@@ -3,8 +3,9 @@ paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
 socket model server, its VAD and punctuation serving and training, its
 block-streaming ConformerCTC, its CTC prefix beam search with n-gram
 shallow fusion, the LEAF and ``add_wav_info`` options, its export through
-``torch.export``, its RNN-T loss and its data and tensor parallelism on
-one CUDA card, and check them.
+``torch.export``, its RNN-T loss, its data and tensor parallelism and the
+head-to-head recipe's quick run (learning quality) on one CUDA card, and
+check them.
 
     python3 chip_smoke.py
 
@@ -294,6 +295,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              to the one without a process group. Prints the 2-rank and
              one-process step times (two ranks share one card: not a
              scaling figure). A failing rank fails the phase.
+23. headtohead_quick - ``recipes/headtohead.py::quick`` in this process:
+             the seed-21 synthetic Mandarin corpus
+             (``recipes/synthetic_mandarin.py``, 500 / 50 / 100 utterances,
+             12 speakers) and its lists (``recipes/aishell1_prepare.py``),
+             then ``cli.train_asr`` for 2000 steps of the offline model
+             (dmodel 64, 4 blocks, dropout 0.1) at B=16, lr 5e-4, with the
+             noise and masking augmenters, checkpoints every 500 steps, and
+             ``cli.eval_am`` on the test list restoring the last one: the
+             setting of ``bench.py::bench_headtohead_live``. Phone CER must
+             be <= 0.0764 and char CER <= 0.855 (2x and 1.5x JAX's 0.0382
+             and 0.570 at the same setting, fixed constants), and
+             ``eval_am`` on a freshly initialised checkpoint of the same
+             config must miss both. Prints the wall time of the corpus, of
+             training (steps/s) and of eval, the trained parameters' device
+             and the card.
 
 K1's and K1b's launch counts are set to 0 just before the ``predict_step``
 calls, the session's 4 requests, each dtype's train steps, the two CLI
@@ -304,8 +320,9 @@ sessions and files, the VAD and punctuation training phase (which must
 launch neither), the block-streaming phase's predict, train, CLI and
 session calls, the beam phase's predict calls, ``eval_am --lm``, served
 encodes and train steps, each of the leaf_wav_export phase's predict and
-train windows and loaded-graph calls, and the parallel phase's rank,
-one-process and eval_am steps, and read just after each; all but the
+train windows and loaded-graph calls, the parallel phase's rank,
+one-process and eval_am steps, and the quick run's train steps and both
+evaluations, and read just after each; all but the
 training of VAD and punctuation and the LEAF branch must have launched
 both. K1b counts one launch a
 log-mel (the launch that writes it); K1 counts every launch of the FFT
@@ -4817,6 +4834,120 @@ def phase_parallel(work: str) -> tuple:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The head-to-head quick run: learning quality over 2000 steps
+# ---------------------------------------------------------------------------
+
+# JAX's offline model after the quick setting's 2000 steps on the seed-21
+# corpus (examples/headtohead/RESULTS.json, key quick_note)
+JAX_QUICK_PHONE_CER, JAX_QUICK_CHAR_CER = 0.0382, 0.570
+# fixed from JAX's reading, never from the card's: 2x its phone CER and
+# 1.5x its char CER
+QUICK_PHONE_CER_MAX = 2 * JAX_QUICK_PHONE_CER
+QUICK_CHAR_CER_MAX = 1.5 * JAX_QUICK_CHAR_CER
+
+
+def untrained_config(data_yml: str, model_yml: str, root: str) -> str:
+    """A copy of ``data_yml`` in ``root`` whose outdir (``root``/logs)
+    holds a freshly initialised checkpoint (step 0) of the same model
+    config; returns its path."""
+    import argparse
+
+    import yaml
+
+    from tensorflowasr_tpu_torch.cli.common import offline_ctc_setup
+    from tensorflowasr_tpu_torch.utils.config import UserConfig
+
+    with open(data_yml) as f:
+        data = yaml.safe_load(f)
+    data["running_config"]["outdir"] = os.path.join(root, "logs")
+    os.makedirs(root)
+    path = os.path.join(root, "untrained_data.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, allow_unicode=True)
+    _, trainer, _ = offline_ctc_setup(argparse.Namespace(device="cuda"),
+                                      UserConfig(path, model_yml),
+                                      "float32")
+    trainer.save()
+    return path
+
+
+def phase_headtohead_quick(work: str) -> tuple:
+    """``recipes/headtohead.py::quick`` in this process on the card: the
+    seed-21 corpus and its preparation, 2000 steps of the offline model at
+    B=16 with the noise and masking augmenters through ``cli.train_asr``,
+    then ``cli.eval_am`` on the test list restoring the last checkpoint;
+    phone and char CER held to bounds fixed from JAX's reading, which must
+    also reject a freshly initialised checkpoint of the same config.
+    Returns K1's and K1b's launches in the training and both evaluations."""
+    from tensorflowasr_tpu_torch.recipes import headtohead
+
+    t_phase = time.perf_counter()
+
+    def run():
+        quick = headtohead.quick(work, "cuda")
+        t0 = time.perf_counter()
+        cold = headtohead.evaluate(
+            untrained_config(quick["data_yml"], quick["model_yml"],
+                             os.path.join(work, "untrained")),
+            quick["model_yml"], "cuda")
+        return quick, cold, time.perf_counter() - t0
+
+    (quick, cold, t_cold), launches = counted(run)
+    result = quick["result"]
+    steps = int(headtohead.QUICK_RUN[headtohead.QUICK_RUN.index(
+        "--total_steps") + 1])
+    batch = int(headtohead.QUICK_RUN[headtohead.QUICK_RUN.index(
+        "--batch") + 1])
+    logs = os.path.join(work, "ours", "logs")
+    ckpts = sorted(os.listdir(os.path.join(logs, "checkpoints")))
+    if ckpts != [f"ckpt_{s:09d}.pt" for s in range(500, steps + 1, 500)]:
+        raise AssertionError(f"headtohead_quick: checkpoints {ckpts}")
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if [m["step"] for m in logged] != list(range(100, steps + 1, 100)) \
+            or not all(math.isfinite(m["train_loss"]) for m in logged) \
+            or not logged[-1]["train_loss"] < logged[0]["train_loss"]:
+        raise AssertionError(f"headtohead_quick: metrics.jsonl {logged}")
+    model = torch.load(os.path.join(logs, "checkpoints", ckpts[-1]),
+                       weights_only=True)["model"]
+    devices = sorted({str(t.device) for t in model.values()})
+    if [d.split(":")[0] for d in devices] != ["cuda"]:
+        raise AssertionError(f"headtohead_quick: trained parameters on "
+                             f"{devices}")
+    with open(os.path.join(work, "work", "test.list"),
+              encoding="utf-8") as f:
+        n_test = sum(1 for line in f if line.strip())
+    # a train step and an eval batch each launch K1b once
+    expect(launches, steps + 2 * -(-n_test // batch),
+           "the quick run's train steps and both evaluations")
+    log(f"headtohead_quick: {CARD}; corpus + prepare "
+        f"{quick['corpus_s']:.2f} s, train_asr {steps} steps at B={batch} "
+        f"{quick['train_s']:.2f} s ({steps / quick['train_s']:.3f} steps/s "
+        f"with start-up; {logged[-1]['steps_per_s']:.3f} over the last "
+        f"100), train_loss {logged[0]['train_loss']:.3f} -> "
+        f"{logged[-1]['train_loss']:.3f}, eval_am {quick['eval_s']:.2f} s, "
+        f"parameters on {devices}")
+    log(f"headtohead_quick: phone CER {result['phone_cer']:.4f} (JAX "
+        f"{JAX_QUICK_PHONE_CER}, bound {QUICK_PHONE_CER_MAX:.4f}), char CER "
+        f"{result['char_cer']:.4f} (JAX {JAX_QUICK_CHAR_CER}, bound "
+        f"{QUICK_CHAR_CER_MAX:.4f}): {json.dumps(result)}")
+    log(f"headtohead_quick: untrained checkpoint phone CER "
+        f"{cold['phone_cer']:.4f}, char CER {cold['char_cer']:.4f} "
+        f"(eval_am {t_cold:.2f} s): {json.dumps(cold)}")
+    if not (result["phone_cer"] <= QUICK_PHONE_CER_MAX
+            and result["char_cer"] <= QUICK_CHAR_CER_MAX):
+        raise AssertionError("headtohead_quick: the trained model misses "
+                             "the bounds")
+    if cold["phone_cer"] <= QUICK_PHONE_CER_MAX \
+            or cold["char_cer"] <= QUICK_CHAR_CER_MAX:
+        raise AssertionError("headtohead_quick: the bounds do not reject "
+                             "the untrained checkpoint")
+    log(f"headtohead_quick: K1 and K1b launched {launches}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4861,6 +4992,10 @@ def main() -> int:
         parallel_dir = os.path.join(work, "parallel")
         os.makedirs(parallel_dir)
         parallel = phase_parallel(parallel_dir)
+        torch.cuda.empty_cache()
+        quick_dir = os.path.join(work, "headtohead")
+        os.makedirs(quick_dir)
+        quick = phase_headtohead_quick(quick_dir)
     phases = {"predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
@@ -4880,7 +5015,9 @@ def main() -> int:
               "add_wav_info predict and train calls and the exported "
               "encoder and picker calls": leaf_wav,
               "data- and tensor-parallel ranks' and one-process train "
-              "steps and eval_am": parallel}
+              "steps and eval_am": parallel,
+              "head-to-head quick run's train steps and evaluations":
+                  quick}
     launches = (0, 0)
     for n in phases.values():
         launches = add(launches, n)

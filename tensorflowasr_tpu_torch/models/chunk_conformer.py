@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflowasr_tpu_torch.models.conformer import count_params  # noqa: F401
 from tensorflowasr_tpu_torch.models.layers import (
     BatchNorm,
     DepthwiseConv1D,

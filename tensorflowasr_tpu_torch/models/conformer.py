@@ -427,3 +427,11 @@ def build_model(cfg: ConformerConfig, num_phone_classes: int,
     model = ConformerCTC(cfg, num_phone_classes, num_char_classes)
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def count_params(model: nn.Module) -> int:
+    """Total parameter count of a module: the same number as the JAX
+    package's ``count_params`` over the flax ``params`` tree of the same
+    model (BatchNorm statistics and fixed tables are buffers here, and
+    outside ``params`` there)."""
+    return sum(p.numel() for p in model.parameters())

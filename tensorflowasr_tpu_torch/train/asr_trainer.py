@@ -36,6 +36,7 @@ from tensorflowasr_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerCTC,
     build_model,
+    count_params,
 )
 from tensorflowasr_tpu_torch.ops.ctc import ctc_loss
 from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
@@ -286,8 +287,7 @@ class CTCTrainer(TrainerBase):
             model.parameters(), dict(self.config["optimizer_config"] or {}),
             dmodel=self.model_cfg.dmodel, use_warmup=self.use_warmup)
         self.state = self.new_state(model, optimizer, seed)
-        n = sum(p.numel() for p in model.parameters())
-        logger.info("model params: %s", f"{n:,}")
+        logger.info("model params: %s", f"{count_params(model):,}")
         return self.state
 
     # fit / evaluate / checkpoint machinery inherited from TrainerBase

@@ -53,6 +53,7 @@ from tensorflowasr_tpu_torch.models.chunk_conformer import (
     ChunkConformer,
     ChunkConformerConfig,
     build_chunk_model,
+    count_params,
 )
 from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode, ctc_loss
 from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
@@ -309,8 +310,7 @@ class ChunkTrainer(TrainerBase):
             model.parameters(), dict(self.config["optimizer_config"] or {}),
             dmodel=self.model_cfg.dmodel)
         self.state = self.new_state(model, optimizer, seed)
-        n = sum(p.numel() for p in model.parameters())
-        logger.info("model params: %s", f"{n:,}")
+        logger.info("model params: %s", f"{count_params(model):,}")
         return self.state
 
     def predict_step(self, state: ASRTrainState, wav: torch.Tensor,

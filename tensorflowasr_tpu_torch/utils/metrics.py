@@ -1,9 +1,9 @@
 """Error-rate metrics: Levenshtein with substitution/deletion/insertion counts.
 
 Counterpart of ``tensorflowasr_tpu/utils/metrics.py`` (pure Python / numpy):
-``levenshtein(ref, hyp)`` returns (n_sub, n_del, n_ins) operation counts
-against the reference sequence; CER = (S+D+I)/len(ref); SER counts exact
-mismatches.
+``levenshtein(ref, hyp)`` (alias ``wer``) returns (n_sub, n_del, n_ins)
+operation counts against the reference sequence; CER = (S+D+I)/len(ref);
+SER counts exact mismatches.
 """
 
 from __future__ import annotations
@@ -48,6 +48,13 @@ def levenshtein(ref: Sequence, hyp: Sequence) -> Tuple[int, int, int]:
             inss += 1
             j -= 1
     return subs, dels, inss
+
+
+def wer(ref: Sequence, hyp: Sequence) -> Tuple[int, int, int]:
+    """:func:`levenshtein` under the name the JAX package also exports:
+    (substitutions, deletions, insertions); over word sequences it gives
+    the word error counts."""
+    return levenshtein(ref, hyp)
 
 
 def cer(ref: Sequence, hyp: Sequence) -> float:

@@ -40,6 +40,11 @@ def test_walk_reaches_the_chunk_modules():
     assert PORT / "models" / "chunk_conformer.py" in FILES
 
 
+def test_walk_reaches_the_recipes():
+    assert {PORT / "recipes" / f"{name}.py" for name in (
+        "synthetic_mandarin", "aishell1_prepare", "headtohead")} <= set(FILES)
+
+
 def test_every_port_module_imports_without_a_card():
     for path in sorted(PORT.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
