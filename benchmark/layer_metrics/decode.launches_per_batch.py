@@ -1,0 +1,7 @@
+"""Kernels, copies and sets on the device a decoded batch."""
+
+from benchlib import readers
+
+
+def read(run):
+    return readers.launches_per(run, "predict")

@@ -1,0 +1,7 @@
+"""Share of the traced seconds of training with no operation on the device."""
+
+from benchlib import readers
+
+
+def read(run):
+    return readers.idle(run)
