@@ -1,0 +1,7 @@
+"""Median host time of the train step's `step.backward` span, ms a step."""
+
+from benchlib import program_records
+
+
+def read(run):
+    return program_records.median_ms(run, "step.backward")

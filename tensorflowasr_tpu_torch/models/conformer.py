@@ -24,6 +24,11 @@ place of the log-mel; ``add_wav_info`` adds a ``WavePickModel``
 (``models/wav_model.py``) of the raw wav to the subsampled features.
 Weights come from ``models/convert.py`` (flax variables) or from
 :func:`build_model`'s seeded random init.
+
+The recorder (``utils/telemetry.py``) keeps three stages as leaf spans,
+``tasr::`` ranges in a profiler's trace: ``conformer.stack`` (subsampling
+and blocks, after the log-mel op), ``conformer.ctc_head`` and
+``conformer.translator``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from tensorflowasr_tpu_torch.models.wav_model import WavePickModel
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops.ctc import collapse_and_remove_blank
 from tensorflowasr_tpu_torch.ops.specaug import spec_augment
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 N_FFT = 1024
@@ -271,24 +277,28 @@ class ConformerEncoder(nn.Module):
     def _stack(self, mel: torch.Tensor, wav: torch.Tensor) -> torch.Tensor:
         """log-mel [B, F, n_mels] -> SpecAugment in training mode ->
         subsampling (+ the ``wav_layer`` features of ``wav`` [B, T(, 1)]
-        under ``add_wav_info``) -> blocks -> [B, T', dmodel] f32."""
+        under ``add_wav_info``) -> blocks -> [B, T', dmodel] f32: the
+        stage ``conformer.stack``, after the log-mel op."""
         c = self.cfg
-        if self.training and c.spec_augment:
-            if self.generator is None:
-                raise RuntimeError("training-mode SpecAugment needs a "
-                                   "generator: call set_generator first")
-            mel = spec_augment(
-                mel, self.generator, n_freq_masks=c.specaug_freq_masks,
-                freq_width=c.specaug_freq_width,
-                n_time_masks=c.specaug_time_masks,
-                time_ratio=c.specaug_time_ratio)
-        x = self.conv_subsampling(mel[..., None])
-        if self.wav_layer is not None:
-            x = x + self.wav_layer(wav)[:, :x.shape[1]]
-        remat = c.remat_blocks and self.training and torch.is_grad_enabled()
-        for block in self.blocks:
-            x = _remat(block, x, self.generator) if remat else block(x)
-        return x.to(torch.float32)
+        with telemetry.span("conformer.stack", leaf=True, shared=True):
+            if self.training and c.spec_augment:
+                if self.generator is None:
+                    raise RuntimeError("training-mode SpecAugment needs a "
+                                       "generator: call set_generator "
+                                       "first")
+                mel = spec_augment(
+                    mel, self.generator, n_freq_masks=c.specaug_freq_masks,
+                    freq_width=c.specaug_freq_width,
+                    n_time_masks=c.specaug_time_masks,
+                    time_ratio=c.specaug_time_ratio)
+            x = self.conv_subsampling(mel[..., None])
+            if self.wav_layer is not None:
+                x = x + self.wav_layer(wav)[:, :x.shape[1]]
+            remat = (c.remat_blocks and self.training
+                     and torch.is_grad_enabled())
+            for block in self.blocks:
+                x = _remat(block, x, self.generator) if remat else block(x)
+            return x.to(torch.float32)
 
 
 class StreamingConformerEncoder(ConformerEncoder):
@@ -330,10 +340,11 @@ class CTCDecoder(nn.Module):
         self.fully_connected = Dense(cfg.dmodel, num_classes, torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.project(x)
-        for block in self.blocks:
-            x = block(x)
-        return self.fully_connected(x)
+        with telemetry.span("conformer.ctc_head", leaf=True, shared=True):
+            x = self.project(x)
+            for block in self.blocks:
+                x = block(x)
+            return self.fully_connected(x)
 
 
 class Translator(nn.Module):
@@ -354,12 +365,13 @@ class Translator(nn.Module):
 
     def forward(self, phone_ids: torch.Tensor, enc: torch.Tensor
                 ) -> torch.Tensor:
-        x = F.embedding(phone_ids.long(), self.inp_embedding.weight)
-        x = x.to(self.compute_dtype)
-        enc = enc.to(self.compute_dtype)
-        for block in self.blocks:
-            x = block(x, enc)
-        return self.fully_connected(x)
+        with telemetry.span("conformer.translator", leaf=True, shared=True):
+            x = F.embedding(phone_ids.long(), self.inp_embedding.weight)
+            x = x.to(self.compute_dtype)
+            enc = enc.to(self.compute_dtype)
+            for block in self.blocks:
+                x = block(x, enc)
+            return self.fully_connected(x)
 
 
 class ConformerCTC(nn.Module):

@@ -20,6 +20,7 @@ import torch
 from tensorflowasr_tpu_torch.models.conformer import ConformerCTC
 from tensorflowasr_tpu_torch.ops.beam import ctc_beam_search_decode
 from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 TRANSLATOR_PAD = 10     # zero phones appended before the translator
@@ -82,7 +83,8 @@ class ASREngine:
     ``beam_width > 0`` the CTC prefix beam search over the top
     ``min(16, n_phone)`` phones a frame, with ``ngram_lm``, a
     ``utils/ngram_lm.py::DeviceNGramLM`` on the model's device, fused at
-    ``lm_weight``) and runs the translator.
+    ``lm_weight``) and runs the translator. The recorder keeps each
+    piece's encode (``engine.encode``) and each decode (``engine.decode``).
     """
 
     def __init__(self, model: ConformerCTC, chunk_seconds: float = 0.5,
@@ -114,30 +116,33 @@ class ASREngine:
             parts = [self.extract_feature(audio[i:i + self.chunk_samples])
                      for i in range(0, n, self.chunk_samples)]
             return np.concatenate(parts, axis=0)
-        n_valid = max(1, int(np.ceil(n / (self.chunk_samples
-                                          / self.chunk_frames))))
-        buf = np.zeros((1, self.chunk_samples), np.float32)
-        buf[0, :n] = audio
-        enc = self.model.encode(torch.from_numpy(buf).to(self.device))
-        enc = enc[0].cpu().numpy()
-        return enc[:min(n_valid, enc.shape[0])]
+        with telemetry.span("engine.encode", shared=True):
+            n_valid = max(1, int(np.ceil(n / (self.chunk_samples
+                                              / self.chunk_frames))))
+            buf = np.zeros((1, self.chunk_samples), np.float32)
+            buf[0, :n] = audio
+            enc = self.model.encode(torch.from_numpy(buf).to(self.device))
+            enc = enc[0].cpu().numpy()
+            return enc[:min(n_valid, enc.shape[0])]
 
     def _decode(self, enc_outputs: Sequence[np.ndarray], pad_chunks: int):
-        enc = np.concatenate([np.asarray(e) for e in enc_outputs], axis=0)
-        t = enc.shape[0]
-        cap_chunks = -(-t // self.chunk_frames)
-        cap_chunks = -(-cap_chunks // pad_chunks) * pad_chunks
-        buf = np.zeros((1, cap_chunks * self.chunk_frames, enc.shape[1]),
-                       np.float32)
-        buf[0, :t] = enc
-        with torch.no_grad():
+        with telemetry.span("engine.decode", shared=True), torch.no_grad():
+            enc = np.concatenate([np.asarray(e) for e in enc_outputs],
+                                 axis=0)
+            t = enc.shape[0]
+            cap_chunks = -(-t // self.chunk_frames)
+            cap_chunks = -(-cap_chunks // pad_chunks) * pad_chunks
+            buf = np.zeros((1, cap_chunks * self.chunk_frames, enc.shape[1]),
+                           np.float32)
+            buf[0, :t] = enc
             enc_t = torch.from_numpy(buf).to(self.device)
             length = torch.tensor([t], dtype=torch.int32, device=self.device)
             logits = self.model.ctc_logits(enc_t)
             ids, lens = self._decode_phones(logits, length)
             padded = torch.nn.functional.pad(ids, (0, TRANSLATOR_PAD))
             char_ids = torch.argmax(self.model.translate(padded, enc_t), -1)
-        return ids.cpu().numpy(), lens.cpu().numpy(), char_ids.cpu().numpy()
+            return (ids.cpu().numpy(), lens.cpu().numpy(),
+                    char_ids.cpu().numpy())
 
     def decode(self, enc_outputs: Sequence[np.ndarray]) -> List[str]:
         """Concatenated encoder outputs -> decoded char tokens (stops at 0

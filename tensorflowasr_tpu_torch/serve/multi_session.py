@@ -14,9 +14,11 @@ slots:
 - ``close(slot)`` pads the remainder to a chunk, drains it and returns the
   final result.
 
-A tick is one dispatch and one fetch of a packed int32 tensor. Each slot
-gathers its ids exactly as ``ChunkStreamSession`` does, so a pool of
-interleaved streams gives each the result it would get alone.
+A dispatch is one step and one fetch of a packed int32 tensor; the
+recorder (``utils/telemetry.py``) keeps each dispatch's phases and each
+tick's dispatches. Each slot gathers its ids exactly as
+``ChunkStreamSession`` does, so a pool of interleaved streams gives each
+the result it would get alone.
 
 ``BatchingStreamFront`` puts the pool behind concurrent clients: each
 client's ``feed`` buffers its audio and blocks, and one ticker thread
@@ -39,6 +41,7 @@ from tensorflowasr_tpu_torch.serve.chunk_session import (
     StreamDecode,
     packed_step,
 )
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 
@@ -92,14 +95,19 @@ class MultiStreamChunkServer:
 
     def tick(self) -> None:
         """Advance every slot with a full chunk buffered, until none has
-        one left."""
+        one left. A tick that dispatched records how many dispatches it
+        ran (counter ``pool.dispatches``; 1 keeps pace with real time)."""
         cs = self.cfg.chunk_samples
+        dispatches = 0
         while True:
             adv = np.array([s.active and len(s.wav_rem) >= cs
                             for s in self._slots], bool)
             if not adv.any():
+                if dispatches:
+                    telemetry.count("pool.dispatches", dispatches)
                 return
             self._dispatch(adv)
+            dispatches += 1
 
     def close(self, slot: int) -> dict:
         """Pad the remainder to a chunk, drain, return the final result and
@@ -132,25 +140,33 @@ class MultiStreamChunkServer:
         return s
 
     def _dispatch(self, adv: np.ndarray) -> None:
+        """One step of the slots in ``adv``, in four spans: ``pool.stage``
+        (gather the chunks and masks, three uploads), ``pool.enqueue``
+        (the step), ``pool.fetch`` (the host's wait and the copy back) and
+        ``pool.unpack`` (each slot's ids)."""
         cs = self.cfg.chunk_samples
-        wavs = np.zeros((self.n_slots, cs), np.float32)
-        reset = np.zeros((self.n_slots,), bool)
-        for i, s in enumerate(self._slots):
-            if adv[i]:
-                wavs[i] = s.wav_rem[:cs]
-                s.wav_rem = s.wav_rem[cs:]
-                reset[i] = s.pending_reset
         dev = self.device
-        with torch.no_grad():
-            packed, self.caches = packed_step(
-                self.model, torch.from_numpy(wavs).to(dev), self.caches,
-                torch.from_numpy(reset).to(dev),
-                torch.from_numpy(adv).to(dev))
-        packed = packed.cpu().numpy()                 # one fetch a tick
-        for i, s in enumerate(self._slots):
-            if adv[i]:
-                s.pending_reset = False
-                s.add(packed[i])
+        with telemetry.span("pool.stage"):
+            wavs = np.zeros((self.n_slots, cs), np.float32)
+            reset = np.zeros((self.n_slots,), bool)
+            for i, s in enumerate(self._slots):
+                if adv[i]:
+                    wavs[i] = s.wav_rem[:cs]
+                    s.wav_rem = s.wav_rem[cs:]
+                    reset[i] = s.pending_reset
+            wavs_t = torch.from_numpy(wavs).to(dev)
+            reset_t = torch.from_numpy(reset).to(dev)
+            adv_t = torch.from_numpy(adv).to(dev)
+        with telemetry.span("pool.enqueue"), torch.no_grad():
+            packed, self.caches = packed_step(self.model, wavs_t,
+                                              self.caches, reset_t, adv_t)
+        with telemetry.span("pool.fetch"):
+            packed = packed.cpu().numpy()
+        with telemetry.span("pool.unpack"):
+            for i, s in enumerate(self._slots):
+                if adv[i]:
+                    s.pending_reset = False
+                    s.add(packed[i])
 
 
 class BatchingStreamFront:

@@ -44,6 +44,7 @@ from tensorflowasr_tpu_torch.parallel.mesh import global_sum
 from tensorflowasr_tpu_torch.serve import engines
 from tensorflowasr_tpu_torch.train.base import TrainerBase
 from tensorflowasr_tpu_torch.train.state import ASRTrainState, make_optimizer
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.config import cfg_get
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
@@ -158,7 +159,9 @@ def make_train_step(blank_id: int,
     """Returns (state, batch) -> (state, metrics). The state is updated in
     place and handed back; the metrics are device scalars. ``mark``, when
     given, is called with "forward", "loss", "backward" and "optimizer" as
-    each stage has been enqueued (for timing a step's stages). ``group``
+    each stage has been enqueued (for timing a step's stages); the
+    recorder keeps each stage's host time as the spans ``step.forward``,
+    ``step.loss``, ``step.backward`` and ``step.optimizer``. ``group``
     is the data group the losses reduce over (the model's BatchNorms and
     the optimizer carry it too)."""
     mark = mark or (lambda stage: None)
@@ -168,17 +171,22 @@ def make_train_step(blank_id: int,
         model = state.model
         if not model.training:
             model.train()
-        outputs = model.train_forward(batch["wav"], batch["phones"],
-                                      batch["input_length"])
+        with telemetry.span("step.forward"):
+            outputs = model.train_forward(batch["wav"], batch["phones"],
+                                          batch["input_length"])
         mark("forward")
-        total, metrics = losses_from_outputs(outputs, batch, blank_id, group)
-        # the char logits at the encoder's width are the step's largest
-        # tensor and nothing in the backward needs them whole
-        del outputs
+        with telemetry.span("step.loss"):
+            total, metrics = losses_from_outputs(outputs, batch, blank_id,
+                                                 group)
+            # the char logits at the encoder's width are the step's
+            # largest tensor and nothing in the backward needs them whole
+            del outputs
         mark("loss")
-        total.backward()
+        with telemetry.span("step.backward"):
+            total.backward()
         mark("backward")
-        state.optimizer.step()
+        with telemetry.span("step.optimizer"):
+            state.optimizer.step()
         mark("optimizer")
         state.step += 1
         return state, metrics
@@ -274,6 +282,8 @@ class CTCTrainer(TrainerBase):
         self.eval_interval = cfg_get(rc, "eval_interval_steps", 500)
         self.outdir = cfg_get(rc, "outdir", "./asr-logs")
         self.sample_rate = self.model_cfg.sample_rate
+        self.frame_samples = (self.model_cfg.hop_size
+                              * self.model_cfg.reduction_factor)
         self.state: Optional[ASRTrainState] = None
 
     def init_state(self, seed: int = 0) -> ASRTrainState:

@@ -10,6 +10,13 @@ The loop never waits for the device between steps: the step counter lives
 on the host, and the metrics (device scalars) are fetched only at log steps,
 in one copy.
 
+A ``metrics.jsonl`` line keeps the JAX package's keys and adds two: the
+rate of audio without the padding, ``audio_seconds_unpadded_per_s`` (each
+row's ``input_length`` encoder frames at ``frame_samples`` samples a frame,
+so exact to one frame a row), and ``telemetry``, the recorder's summary
+(``utils/telemetry.py::summary``: each span's count, median and p95 in ms,
+each counter's count and sum) of what was recorded since the last log line.
+
 Under data parallelism (a trainer's ``mesh``, ``parallel/mesh.py``) every
 rank runs the same loader and keeps its rows of each batch; the metrics are
 global, only global rank 0 writes ``metrics.jsonl`` and the checkpoints
@@ -34,8 +41,8 @@ from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowasr_tpu_torch.parallel.multihost import process_index
 from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
 from tensorflowasr_tpu_torch.train.state import ASRTrainState
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.config import cfg_get
-from tensorflowasr_tpu_torch.utils.telemetry import ThroughputMeter
 
 logger = logging.getLogger(__name__)
 
@@ -52,11 +59,13 @@ def fetch_mean(metrics: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
 class TrainerBase:
     """Requires subclass attributes: state, device, outdir, train_step,
     eval_step, log_interval, save_interval, eval_interval, and a
-    ``sample_rate`` for throughput accounting (0 disables it). A
-    data-parallel subclass calls :meth:`set_mesh` and builds its state with
-    :meth:`new_state`."""
+    ``sample_rate`` for throughput accounting (0 disables it) with the
+    samples of an encoder frame, ``frame_samples``, for the unpadded audio
+    (0 leaves it out). A data-parallel subclass calls :meth:`set_mesh` and
+    builds its state with :meth:`new_state`."""
 
     sample_rate: int = 0
+    frame_samples: int = 0
     _ckpt_mgr = None
     mesh = None        # a DeviceMesh whose data axes split the batch
     group = None       # the process group of those axes
@@ -124,10 +133,11 @@ class TrainerBase:
                                                     "metrics.jsonl")
         t0 = time.time()
         accum = []
-        meter = ThroughputMeter()
+        meter = telemetry.ThroughputMeter()
         step0 = int(self.state.step)
         writer = process_index() == 0
         mf = open(metrics_path, "a") if writer else None
+        t_log = time.perf_counter()
 
         def record(m: dict) -> None:
             if mf is not None:
@@ -142,13 +152,20 @@ class TrainerBase:
                 if self.sample_rate and "wav" in host_batch:
                     # the global batch: every rank ran its rows of it
                     b, t = np.shape(host_batch["wav"])
-                    meter.update(b, b * t / self.sample_rate)
+                    frames = (np.sum(host_batch["input_length"])
+                              if self.frame_samples else 0)
+                    meter.update(b, b * t / self.sample_rate,
+                                 float(frames) * self.frame_samples
+                                 / self.sample_rate)
                 accum.append(metrics)
                 step = step0 + i + 1
                 if step % self.log_interval == 0:
                     m = fetch_mean(accum)
+                    now = time.perf_counter()
                     m.update(step=step, wall_s=time.time() - t0,
-                             **meter.rates())
+                             **meter.rates(),
+                             telemetry=telemetry.summary(t_log, now))
+                    t_log = now
                     logger.info("train %s", m)
                     record(m)
                     accum = []

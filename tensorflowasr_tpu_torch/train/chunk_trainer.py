@@ -60,6 +60,7 @@ from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowasr_tpu_torch.parallel.mesh import global_sum
 from tensorflowasr_tpu_torch.train.base import TrainerBase
 from tensorflowasr_tpu_torch.train.state import ASRTrainState, make_optimizer
+from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.config import cfg_get
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
@@ -182,7 +183,8 @@ def make_chunk_train_step(max_pick: Optional[int] = None,
     clipping and accumulation ``optimizer_config`` sets). The state is
     updated in place and handed back; the metrics are device scalars.
     ``mark``, when given, is called with "forward", "loss", "backward" and
-    "optimizer" as each stage has been enqueued. ``group`` is the data
+    "optimizer" as each stage has been enqueued; the recorder keeps each
+    stage's host time as the spans ``step.<stage>``. ``group`` is the data
     group the losses reduce over (the model and the optimizer carry it
     too)."""
     _check("txt_ctc_length", txt_ctc_length, TXT_DECODE_LENGTHS)
@@ -194,17 +196,22 @@ def make_chunk_train_step(max_pick: Optional[int] = None,
         model = state.model
         if not model.training:
             model.train()
-        fwd = model.train_forward(batch["wav"], batch["extra_phones"],
-                                  max_pick, label_width=label_width(batch))
+        with telemetry.span("step.forward"):
+            fwd = model.train_forward(batch["wav"], batch["extra_phones"],
+                                      max_pick,
+                                      label_width=label_width(batch))
         mark("forward")
-        total, metrics = losses_from_outputs(
-            fwd, batch, model.num_phone_classes, model.num_char_classes,
-            txt_ctc_length, loss_reduction, group)
-        del fwd
+        with telemetry.span("step.loss"):
+            total, metrics = losses_from_outputs(
+                fwd, batch, model.num_phone_classes, model.num_char_classes,
+                txt_ctc_length, loss_reduction, group)
+            del fwd
         mark("loss")
-        total.backward()
+        with telemetry.span("step.backward"):
+            total.backward()
         mark("backward")
-        state.optimizer.step()
+        with telemetry.span("step.optimizer"):
+            state.optimizer.step()
         mark("optimizer")
         state.step += 1
         return state, metrics
@@ -296,6 +303,8 @@ class ChunkTrainer(TrainerBase):
         self.eval_interval = cfg_get(rc, "eval_interval_steps", 500)
         self.outdir = cfg_get(rc, "outdir", "./chunk-logs")
         self.sample_rate = self.model_cfg.sample_rate
+        self.frame_samples = (self.model_cfg.chunk_samples
+                              // self.model_cfg.sub_length)
         self.state: Optional[ASRTrainState] = None
 
     def init_state(self, seed: int = 0) -> ASRTrainState:
