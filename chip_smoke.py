@@ -3324,9 +3324,9 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
     chunks, 16: the JAX package's test_asr pads a wav only to hop x
     reduction factor, so another length raises in its streaming encoder,
     and the port keeps that); ``OfflineASRSession`` on 2 / 3.5 / 5 / 8 s
-    files, one 7680-sample chunk an encode, its encoder rows joined within
-    1e-3 of the folded encode of the padded file. K1b's launches are
-    counted exactly in each. Returns them."""
+    files, a file's 7680-sample chunks in one batched encode, its encoder
+    rows joined within 1e-3 of the folded encode of the padded file. K1b's
+    launches are counted exactly in each. Returns them."""
     from tensorflowasr_tpu_torch.cli import eval_am, test_asr, train_asr
     from tensorflowasr_tpu_torch.models.conformer import (
         StreamingConformerEncoder,
@@ -3491,7 +3491,8 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
             f"batches in {t_eval:.2f} s: {json.dumps(scores)}; cli.test_asr "
             f"on a 16-chunk wav in {t_test:.2f} s: {decoded[-1]}")
 
-        # OfflineASRSession, one chunk an encode, against the folded encode
+        # OfflineASRSession, one batched encode a file, against the folded
+        # encode
         trainer = block_trainer(cli_data, "cuda")
         if not trainer.restore():
             raise AssertionError("no block checkpoint to serve")
@@ -3501,9 +3502,9 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         session.transcribe_wav(noise(SR, seed=23))              # warm-up
         files = [noise(int(s * SR), seed=30 + i)
                  for i, s in enumerate(BLOCK_FILE_SECONDS)]
-        encodes = sum(1 for w in files for s in range(0, len(w), chunk)
-                      if len(w[s:s + chunk]) >= MIN_PIECE_SAMPLES)
-        tap = Tap(asr, "extract_feature")
+        pieces = sum(1 for w in files for s in range(0, len(w), chunk)
+                     if len(w[s:s + chunk]) >= MIN_PIECE_SAMPLES)
+        tap = Tap(asr, "encode_pieces")
 
         def requests():
             walls = []
@@ -3517,29 +3518,26 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
             return walls
 
         walls, n = counted(requests)
-        rows = tap.remove()
+        rows = tap.remove()                 # each file's pieces' rows
+        encodes = len(files)
         launches = add(launches, expect(n, encodes,
                                         f"{encodes} block session encodes"))
-        worst, at = 0.0, 0
-        for w in files:
-            pieces = -(-len(w) // chunk)
-            padded = np.zeros((1, pieces * chunk), np.float32)
+        worst = 0.0
+        for w, used in zip(files, rows):
+            n_chunks = -(-len(w) // chunk)
+            padded = np.zeros((1, n_chunks * chunk), np.float32)
             padded[0, :len(w)] = w
             with torch.no_grad():
                 folded = model.encode(torch.from_numpy(padded).to(dev))[0]
-            n_used = sum(1 for s in range(0, len(w), chunk)
-                         if len(w[s:s + chunk]) >= MIN_PIECE_SAMPLES)
-            used = rows[at:at + n_used]
-            at += n_used
             joined = torch.from_numpy(np.concatenate(used)).to(dev)
             worst = max(worst, within(joined, folded[:len(joined)], rtol=0,
                                       atol=1e-3))
         log(f"block_stream: OfflineASRSession "
             + ", ".join(f"{s} s {t * 1e3:.3f} ms" for s, t in
                         zip(BLOCK_FILE_SECONDS, walls))
-            + f" ({encodes} B=1 chunk encodes); its encoder rows joined vs "
-            f"the folded encode of each padded file: max|err| {worst:.3e} "
-            f"[{CARD}]")
+            + f" ({pieces} chunks in {encodes} batched encodes); its "
+            f"encoder rows joined vs the folded encode of each padded file: "
+            f"max|err| {worst:.3e} [{CARD}]")
     log(f"block_stream: K1 and K1b launched {launches}; phase "
         f"{time.perf_counter() - t_phase:.2f} s")
     return launches, predict_launches

@@ -77,14 +77,21 @@ def predict_step(model: ConformerCTC, wav: torch.Tensor,
 class ASREngine:
     """Block-streaming ASR over a model whose weights are loaded.
 
-    ``extract_feature`` pads a wav chunk to ``chunk_samples`` (one shape);
+    ``extract_feature`` pads a wav chunk to ``chunk_samples`` and encodes
+    it alone (B = 1); ``encode_pieces`` stacks a list of chunks, each
+    zero padded to ``chunk_samples``, into rows padded to a multiple of
+    ``pad_chunks`` and encodes them in one pass with one fetch, as
+    ``extract_feature`` does with an input longer than one chunk. In eval
+    mode no layer mixes rows, so each piece's rows are those it gets
+    encoded alone, up to the rounding of the kernels a batch picks.
     ``decode`` pads the concatenated encoder outputs to the next multiple
     of ``pad_chunks`` chunks, then decodes the phones (greedy, or with
     ``beam_width > 0`` the CTC prefix beam search over the top
     ``min(16, n_phone)`` phones a frame, with ``ngram_lm``, a
     ``utils/ngram_lm.py::DeviceNGramLM`` on the model's device, fused at
-    ``lm_weight``) and runs the translator. The recorder keeps each
-    piece's encode (``engine.encode``) and each decode (``engine.decode``).
+    ``lm_weight``) and runs the translator. The recorder keeps each encode
+    pass (``engine.encode``), the pieces of each batched pass
+    (``engine.pieces``) and each decode (``engine.decode``).
     """
 
     def __init__(self, model: ConformerCTC, chunk_seconds: float = 0.5,
@@ -109,21 +116,44 @@ class ASREngine:
 
     @torch.no_grad()
     def extract_feature(self, audio: np.ndarray) -> np.ndarray:
-        """wav chunk [n] -> encoder output [valid_frames, dmodel]; inputs
-        longer than ``chunk_samples`` run piece by piece and concatenate."""
+        """wav chunk [n] -> encoder output [valid_frames, dmodel]; an input
+        longer than ``chunk_samples`` is cut into chunks, which
+        :meth:`encode_pieces` encodes in one pass, and their rows are
+        concatenated."""
         n = len(audio)
         if n > self.chunk_samples:
-            parts = [self.extract_feature(audio[i:i + self.chunk_samples])
-                     for i in range(0, n, self.chunk_samples)]
-            return np.concatenate(parts, axis=0)
+            return np.concatenate(self.encode_pieces(
+                [audio[i:i + self.chunk_samples]
+                 for i in range(0, n, self.chunk_samples)]), axis=0)
         with telemetry.span("engine.encode", shared=True):
-            n_valid = max(1, int(np.ceil(n / (self.chunk_samples
-                                              / self.chunk_frames))))
-            buf = np.zeros((1, self.chunk_samples), np.float32)
-            buf[0, :n] = audio
-            enc = self.model.encode(torch.from_numpy(buf).to(self.device))
-            enc = enc[0].cpu().numpy()
-            return enc[:min(n_valid, enc.shape[0])]
+            return self._encode([audio], 1)[0]
+
+    @torch.no_grad()
+    def encode_pieces(self, pieces: Sequence[np.ndarray]
+                      ) -> List[np.ndarray]:
+        """wav pieces, each of at most ``chunk_samples`` -> each piece's
+        encoder output [valid_frames, dmodel], as :meth:`extract_feature`
+        gives it for the piece alone, from one encode of all of them."""
+        if not pieces:
+            return []
+        rows = -(-len(pieces) // self.pad_chunks) * self.pad_chunks
+        with telemetry.span("engine.encode", shared=True):
+            telemetry.count("engine.pieces", len(pieces), shared=True)
+            return self._encode(pieces, rows)
+
+    def _encode(self, pieces: Sequence[np.ndarray], rows: int
+                ) -> List[np.ndarray]:
+        """The pieces zero padded into a [rows, chunk_samples] buffer, one
+        upload, one encode, one fetch of the pieces' rows; each piece's
+        output cut to its valid frames."""
+        buf = np.zeros((rows, self.chunk_samples), np.float32)
+        for i, piece in enumerate(pieces):
+            buf[i, :len(piece)] = piece
+        enc = self.model.encode(torch.from_numpy(buf).to(self.device))
+        enc = enc[:len(pieces)].cpu().numpy()
+        quantum = self.chunk_samples / self.chunk_frames
+        return [e[:min(max(1, int(np.ceil(len(p) / quantum))), e.shape[0])]
+                for e, p in zip(enc, pieces)]
 
     def _decode(self, enc_outputs: Sequence[np.ndarray], pad_chunks: int):
         with telemetry.span("engine.decode", shared=True), torch.no_grad():

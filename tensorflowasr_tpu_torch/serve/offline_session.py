@@ -3,9 +3,12 @@
 Counterpart of ``tensorflowasr_tpu/serve/offline_session.py``: load a wav at
 16 kHz, segment it with the offline VAD at 8 kHz (every ``vad_downsample``-th
 sample; the segments scale back by the same factor), then decode each
-segment with the block-streaming ASR engine in ``chunk_samples`` pieces and
-punctuate results of at least ``min_punc_chars`` chars. Without a VAD
-engine the whole wav is one segment.
+segment with the block-streaming ASR engine: the segment is cut into
+``chunk_samples`` pieces, which one ``ASREngine.encode_pieces`` call
+encodes in one batched pass (each piece's rows as if it were encoded
+alone), and one decode runs over their joined rows. Results of at least
+``min_punc_chars`` chars are punctuated. Without a VAD engine the whole
+wav is one segment.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ class OfflineASRSession:
 
     def _decode_segment(self, seg_wav: np.ndarray) -> List[str]:
         chunk = self.asr.chunk_samples
-        encs = [self.asr.extract_feature(seg_wav[s:s + chunk])
-                for s in range(0, len(seg_wav), chunk)
-                if len(seg_wav[s:s + chunk]) >= MIN_PIECE_SAMPLES]
+        encs = self.asr.encode_pieces(
+            [seg_wav[s:s + chunk] for s in range(0, len(seg_wav), chunk)
+             if len(seg_wav[s:s + chunk]) >= MIN_PIECE_SAMPLES])
         result = self.asr.decode(encs)
         if self.punc is not None and len(result) >= self.min_punc_chars:
             result = self.punc.punc_recover(result)

@@ -7,9 +7,9 @@ recorder of the port's own:
 - :func:`span` (a context manager), :func:`count`, :func:`between` and
   :func:`summary`: named host-clock spans and counters recorded inside the
   program (the stream pool's dispatch phases, the train step's phases, the
-  Conformer's stages, the file engine's pieces), each name kept in a
-  preallocated ring of its newest ``RING`` records. ``fit`` writes
-  :func:`summary` of each log interval under ``telemetry`` in
+  Conformer's stages, the file engine's encodes and their pieces), each
+  name kept in a preallocated ring of its newest ``RING`` records. ``fit``
+  writes :func:`summary` of each log interval under ``telemetry`` in
   ``metrics.jsonl``;
 - :func:`trace`: a context manager around ``torch.profiler`` writing a
   Chrome / Perfetto trace file into a directory; while a profiler records,
@@ -133,10 +133,10 @@ class Recorder:
              ) -> _Span:
         return _Span(self._ring(name, "span", leaf, shared))
 
-    def count(self, name: str, value: float) -> None:
-        """Record ``value`` under the counter ``name`` (one writing
-        thread)."""
-        self._ring(name, "count", False, False).put(_clock(), value)
+    def count(self, name: str, value: float, shared: bool = False) -> None:
+        """Record ``value`` under the counter ``name``; ``shared`` as for
+        :meth:`span`."""
+        self._ring(name, "count", False, shared).put(_clock(), value)
 
     def between(self, name: str, lo: float = -np.inf, hi: float = np.inf
                 ) -> np.ndarray:

@@ -22,7 +22,10 @@ from tensorflowasr_tpu.train.asr_trainer import make_predict_step
 from tensorflowasr_tpu_torch.models import conformer as tconf
 from tensorflowasr_tpu_torch.models import convert
 from tensorflowasr_tpu_torch.serve.engines import ASREngine, predict_step
-from tensorflowasr_tpu_torch.serve.offline_session import OfflineASRSession
+from tensorflowasr_tpu_torch.serve.offline_session import (
+    MIN_PIECE_SAMPLES,
+    OfflineASRSession,
+)
 
 torch.set_num_threads(2)
 
@@ -172,6 +175,43 @@ def test_engine_and_offline_session_match_jax():
     want = JOfflineASRSession(jeng).transcribe_wav(wav)
     assert got == want
     assert len(got) == 1 and got[0]["text"]
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """(the port's engine, JAX's engine) over the same weights."""
+    n_phone, n_char = 11, 17
+    jmodel, variables, tmodel = pair(n_phone, n_char, seed=2)
+    vocab = Vocab(n_char)
+    return (ASREngine(tmodel, chunk_seconds=0.5, sample_rate=SR,
+                      text_featurizer=vocab),
+            JASREngine(jmodel, variables, chunk_seconds=0.5, sample_rate=SR,
+                       text_featurizer=vocab))
+
+
+# (whole pieces, samples of a trailing piece): one piece, a trailing short
+# piece, whole groups of pad_chunks, a trailing piece the session drops
+# (under MIN_PIECE_SAMPLES), and more than two groups
+@pytest.mark.parametrize("whole,tail", [(1, 0), (1, 3000), (4, 0),
+                                        (4, MIN_PIECE_SAMPLES // 2),
+                                        (8, 5000)])
+def test_batched_pieces_equal_one_encode_a_piece(engines, whole, tail):
+    teng, jeng = engines
+    chunk = teng.chunk_samples
+    wav = speech((whole * chunk + tail) / SR, seed=whole + tail)
+    pieces = [wav[s:s + chunk] for s in range(0, len(wav), chunk)]
+    assert len(pieces) == whole + (tail > 0)
+    alone = [teng.extract_feature(p) for p in pieces]   # B = 1 each
+    batched = teng.encode_pieces(pieces)
+    assert [b.shape for b in batched] == [a.shape for a in alone]
+    for b, a in zip(batched, alone):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(teng.extract_feature(wav),
+                               np.concatenate(alone), rtol=0, atol=1e-5)
+
+    got = OfflineASRSession(teng).transcribe_wav(wav)
+    want = JOfflineASRSession(jeng).transcribe_wav(wav)
+    assert got == want and got[0]["text"]
 
 
 def test_unported_serving_options_raise():

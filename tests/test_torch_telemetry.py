@@ -148,6 +148,31 @@ def test_a_shared_name_loses_no_record_across_threads():
     assert np.all(got[:, 1] >= got[:, 0]) and np.all(got[:, 0] > 0)
 
 
+def test_a_shared_counter_loses_no_record_across_threads():
+    rec = telemetry.Recorder()
+    n_threads, each = 8, 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            for _ in range(each):
+                rec.count("pieces", k, shared=True)
+
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(1, n_threads + 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    got = rec.between("pieces")
+    assert len(got) == n_threads * each
+    assert got[:, 1].sum() == each * n_threads * (n_threads + 1) / 2
+    assert rec.summary()["pieces"]["count"] == n_threads * each
+
+
 def test_no_record_function_without_a_profiler(monkeypatch):
     opened = []
 
@@ -284,15 +309,28 @@ def test_engine_records_each_piece_and_one_decode():
     wav = tones(2 * SR)                       # 4 pieces of 7680, one of 1280
     segs = session.transcribe_wav(wav)
     assert isinstance(segs[0]["text"], str)
-    assert len(telemetry.between("engine.encode")) == \
-        -(-len(wav) // engine.chunk_samples) == 5
+    # the 5 pieces in one encode of 8 rows (whole groups of pad_chunks 4)
+    (s, e), = telemetry.between("engine.encode")
+    (at, pieces), = telemetry.between("engine.pieces")
+    assert pieces == -(-len(wav) // engine.chunk_samples) == 5
+    assert s <= at <= e
     decode = telemetry.between("engine.decode")
     assert len(decode) == 1
-    # each encode runs the stack once; the decode runs both heads inside
-    assert len(telemetry.between("conformer.stack")) == 5
+    # the encode runs the stack once; the decode runs both heads inside
+    assert len(telemetry.between("conformer.stack")) == 1
     for head in ("conformer.ctc_head", "conformer.translator"):
         (s, e), = telemetry.between(head)
         assert decode[0, 0] <= s and e <= decode[0, 1]
+
+
+def test_engine_single_chunk_is_one_encode_without_pieces():
+    engine = ASREngine(conformer_model(), chunk_seconds=0.5)
+    assert engine.encode_pieces([]) == []         # a segment with no piece
+    rows = engine.extract_feature(tones(engine.chunk_samples))
+    assert rows.shape[0] == engine.chunk_frames
+    assert len(telemetry.between("engine.encode")) == 1
+    assert len(telemetry.between("conformer.stack")) == 1
+    assert len(telemetry.between("engine.pieces")) == 0
 
 
 def test_stage_ranges_are_leaves_in_a_trace():
