@@ -158,6 +158,9 @@ def make_train_iter(args, thread_iter_fn: Callable[[], Iterator],
 
 
 def model_name(config: UserConfig) -> str:
+    """``model_config.name``: ``ChunkConformer``, ``EBranchformerCTC``, or
+    any other name (``OfflineConformerCTC`` when unset) for a
+    ConformerCTC."""
     return config.section("model_config")["name"] or "OfflineConformerCTC"
 
 

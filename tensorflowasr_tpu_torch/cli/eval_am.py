@@ -6,9 +6,11 @@ one JSON object with phone / char SER / CER and S/I/D counts.
 
 Counterpart of ``tensorflowasr_tpu/cli/eval_am.py``: dispatches on
 ``model_config.name`` (``ChunkConformer`` -> ``ChunkTester``, anything else
--> ``AMTester``). The newest checkpoint under
-``running_config.outdir``/checkpoints is evaluated (random init with a
-warning when there is none). It scores in float32, as the JAX CLI does
+-> ``AMTester`` over ``CTCTrainer``'s model: an ``EBranchformerCTC`` for
+``EBranchformerCTC``, a ConformerCTC for any other name). The newest
+checkpoint under ``running_config.outdir``/checkpoints is evaluated
+(random init with a warning when there is none). It scores in float32, as
+the JAX CLI does
 (its trainers are built without ``compute_dtype``): ``--compute_dtype`` is
 parsed and ignored.
 

@@ -23,6 +23,10 @@ ConformerCTC. The wav is padded only to hop x reduction factor, as in the
 JAX CLI, so its length must be a whole number of ``chunk_samples`` (7680 at
 16 kHz and ``streaming_bucket`` 0.5): any other length raises ValueError in
 the encoder, as it does in the JAX package.
+
+``model_config.name: EBranchformerCTC`` decodes the trainer's checkpoint of
+that model; it has no JAX counterpart, so ``--weights`` and
+``--export_native`` raise ValueError for it.
 """
 
 from __future__ import annotations
@@ -37,12 +41,14 @@ from tensorflowasr_tpu_torch.cli.common import (
     build_featurizers,
     config_parser,
     load_config,
+    model_name,
 )
 from tensorflowasr_tpu_torch.models.conformer import (
     ConformerConfig,
     ConformerCTC,
 )
 from tensorflowasr_tpu_torch.models.convert import load_npz, num_classes
+from tensorflowasr_tpu_torch.models.ebranchformer import NAME as EBRANCHFORMER
 from tensorflowasr_tpu_torch.serve.engines import predict_step
 from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 from tensorflowasr_tpu_torch.utils.audio import SpeechFeaturizer
@@ -75,6 +81,11 @@ def main(argv=None) -> int:
             "--export_savedmodel (TF SavedModels through jax2tf) is not "
             "ported")
     config = load_config(args)
+    if model_name(config) == EBRANCHFORMER and (args.weights
+                                                or args.export_native):
+        raise ValueError(f"--weights and --export_native hold a JAX "
+                         f"ConformerCTC's layout, which {EBRANCHFORMER} "
+                         f"does not have")
     device = resolve_device(args.device)
     phone_f, char_f = build_featurizers(config)[:2]
 

@@ -13,7 +13,9 @@ On N cards, data parallel, one process a card:
 
 Counterpart of ``tensorflowasr_tpu/cli/train_asr.py``: dispatches on
 ``model_config.name`` (``ChunkConformer`` -> ``ChunkTrainer`` on the chunk
-dataloader, anything else -> ``CTCTrainer``, which with
+dataloader, anything else -> ``CTCTrainer``, which builds an
+``EBranchformerCTC`` for ``EBranchformerCTC`` and a ConformerCTC for any
+other name, and with
 ``speech_config.streaming: true`` trains the block-streaming ConformerCTC on
 chunk-quantised lengths), resumes from the newest
 checkpoint under ``running_config.outdir``/checkpoints when there is one,

@@ -120,6 +120,10 @@ class ConformerConfig:
         return _DTYPES[self.dtype_str]
 
     @property
+    def model_class(self) -> type:
+        return ConformerCTC
+
+    @property
     def hop_size(self) -> int:
         return self.sample_rate * self.stride_ms // 1000
 
@@ -378,7 +382,7 @@ class ConformerCTC(nn.Module):
     """Encoder + CTCDecoder + Translator.
 
     - ``forward(wav, phone_ids)`` -> (enc, ctc_logits, char_logits)
-    - ``encode(wav)``             -> enc [B, T', dmodel] f32
+    - ``encode(wav, lengths)``    -> enc [B, T', dmodel] f32
     - ``ctc_logits(enc)``         -> phone logits [B, T', n_phone] f32
     - ``translate(ids, enc)``     -> char logits [B, U, n_char] f32
     - ``train_forward(wav, phones, input_length)`` -> the trainer's forward
@@ -390,11 +394,15 @@ class ConformerCTC(nn.Module):
         self.cfg = cfg
         self.num_phone_classes = num_phone_classes
         self.num_char_classes = num_char_classes
-        self.encoder = (StreamingConformerEncoder if cfg.streaming
-                        else ConformerEncoder)(cfg)
+        self.encoder = self._encoder(cfg)
         self.ctc_decoder = CTCDecoder(cfg, num_phone_classes)
         self.translator = Translator(cfg, num_phone_classes,
                                      num_char_classes)
+
+    @staticmethod
+    def _encoder(cfg: ConformerConfig) -> nn.Module:
+        return (StreamingConformerEncoder if cfg.streaming
+                else ConformerEncoder)(cfg)
 
     def forward(self, wav: torch.Tensor, phone_ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -409,7 +417,7 @@ class ConformerCTC(nn.Module):
         static [B, T'] shape. Returns (enc, ctc_logits, decoded, label_out
         [B, L + 5, n_char], ctc_out [B, T', n_char])."""
         blank_id = self.num_phone_classes - 1
-        enc = self.encoder(wav)
+        enc = self.encode(wav, input_length)
         ctc_logits = self.ctc_decoder(enc)
         ids = torch.argmax(ctc_logits.detach().to(torch.float32), dim=-1)
         decoded, _ = collapse_and_remove_blank(ids.to(torch.int32),
@@ -418,7 +426,10 @@ class ConformerCTC(nn.Module):
         ctc_out = self.translator(decoded, enc)
         return enc, ctc_logits, decoded, label_out, ctc_out
 
-    def encode(self, wav: torch.Tensor) -> torch.Tensor:
+    def encode(self, wav: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``lengths`` (valid encoder frames a row) are ignored: no layer
+        of a Conformer mixes frames through a mask."""
         return self.encoder(wav)
 
     def ctc_logits(self, enc: torch.Tensor) -> torch.Tensor:
@@ -433,10 +444,12 @@ def build_model(cfg: ConformerConfig, num_phone_classes: int,
                 num_char_classes: int,
                 device: Union[str, torch.device] = "cuda",
                 seed: int = 0) -> ConformerCTC:
-    """A ConformerCTC in eval mode on ``device`` with seeded Keras-style
-    random weights (load real ones with ``load_state_dict``)."""
+    """The configuration's model (``cfg.model_class``: a ConformerCTC, or
+    an EBranchformerCTC for an ``EBranchformerConfig``) in eval mode on
+    ``device`` with seeded Keras-style random weights (load real ones with
+    ``load_state_dict``)."""
     dev = resolve_device(device)
-    model = ConformerCTC(cfg, num_phone_classes, num_char_classes)
+    model = cfg.model_class(cfg, num_phone_classes, num_char_classes)
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
 

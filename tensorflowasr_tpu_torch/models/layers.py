@@ -9,7 +9,9 @@ other name by name. Traps kept on purpose:
   explicit ``F.pad`` and merges [b, t, f, c] -> [b, t, f*c] with f major;
 - the depthwise conv pads (K-1)//2 left and K//2 right for an even K and
   is a cross-correlation, like the JAX one (the kernel is not flipped);
-- encoder self-attention has no mask and no positional encoding;
+- the Conformer's encoder self-attention has no mask and no positional
+  encoding; the E-Branchformer's (:class:`RelPositionMultiHeadAttention`)
+  has relative positions and a key mask;
 - dtype policy: matmuls and convs in the compute dtype (f32 or bf16) with
   f32 parameters cast per call, LayerNorm and BatchNorm in f32.
 
@@ -50,18 +52,20 @@ def _same_pad(t: int, k: int, s: int) -> Tuple[int, int]:
 class Dense(nn.Linear):
     """flax ``nn.Dense``: runs in ``dtype`` with the f32 weights cast per
     call. ``init_limit`` overrides the glorot-uniform limit (the MHA
-    projections' fan rules)."""
+    projections' fan rules); ``bias=False`` leaves the bias out."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
-                 init_limit: Optional[float] = None):
-        super().__init__(in_features, out_features)
+                 init_limit: Optional[float] = None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.init_limit = init_limit
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = self.bias
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if bias is None else bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -298,13 +302,19 @@ class ConvSubsampling(nn.Module):
 
 
 class FFModule(nn.Module):
+    """LN -> Dense(hidden) -> swish -> dropout -> Dense(d) -> dropout ->
+    ``x + fc_factor * y``; ``hidden`` is 4 d unless given, the LayerNorm's
+    epsilon Keras' 1e-3 unless ``eps`` says otherwise."""
+
     def __init__(self, input_dim: int, dropout: float = 0.0,
-                 fc_factor: float = 0.5, dtype: torch.dtype = torch.float32):
+                 fc_factor: float = 0.5, dtype: torch.dtype = torch.float32,
+                 hidden: Optional[int] = None, eps: float = NORM_EPS):
         super().__init__()
+        hidden = 4 * input_dim if hidden is None else hidden
         self.fc_factor = fc_factor
-        self.ln = LayerNorm(input_dim)
-        self.ffn1 = Dense(input_dim, 4 * input_dim, dtype)
-        self.ffn2 = Dense(4 * input_dim, input_dim, dtype)
+        self.ln = LayerNorm(input_dim, eps)
+        self.ffn1 = Dense(input_dim, hidden, dtype)
+        self.ffn2 = Dense(hidden, input_dim, dtype)
         self.dropout = Dropout(dropout)
         # (rank, size) when ffn1 is column-parallel (parallel/tp.py)
         self.hidden_shard: Optional[Tuple[int, int]] = None
@@ -495,6 +505,113 @@ class RBlock(nn.Module):
         return self.ln(x)
 
 
+def rel_positional_encoding(length: int, dmodel: int) -> np.ndarray:
+    """[2 length - 1, dmodel]: the interleaved sin / cos of the relative
+    positions length - 1, ..., 0, ..., -(length - 1) (ESPnet's
+    ``RelPositionalEncoding``, ``rel_pos_type: latest``)."""
+    pos = np.arange(length - 1, -length, -1, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, dmodel, 2, dtype=np.float64)
+                 * -(math.log(10000.0) / dmodel))
+    pe = np.zeros((2 * length - 1, dmodel), dtype=np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
+@tensor_cache
+def _rel_pe_table(length: int, dmodel: int, device: torch.device
+                  ) -> torch.Tensor:
+    return torch.from_numpy(rel_positional_encoding(length, dmodel)).to(
+        device)
+
+
+class RelPositionalEncoding(nn.Module):
+    """x [B, T, d] -> (x * sqrt(d) in f32, the [2T - 1, d] table of
+    :func:`rel_positional_encoding`), each through the same dropout."""
+
+    def __init__(self, dmodel: int, dropout: float = 0.0):
+        super().__init__()
+        self.scale = math.sqrt(dmodel)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos = _rel_pe_table(x.shape[1], x.shape[2], x.device)
+        return (self.dropout(x.to(torch.float32) * self.scale),
+                self.dropout(pos))
+
+
+def rel_shift(x: torch.Tensor) -> torch.Tensor:
+    """[..., T, 2T - 1] scores against the positions T - 1, ..., -(T - 1)
+    -> [..., T, T] whose entry (i, j) is the score against position i - j:
+    the Transformer-XL shift, one zero column and a reshape."""
+    *lead, t, p = x.shape
+    x = F.pad(x, (1, 0)).view(*lead, p + 1, t)
+    return x[..., 1:, :].reshape(*lead, t, p)[..., :p // 2 + 1]
+
+
+def key_mask(lengths: Optional[torch.Tensor], t: int
+             ) -> Optional[torch.Tensor]:
+    """[B, 1, 1, t] bool, True on each row's first ``lengths`` keys (at
+    least one); None without lengths."""
+    if lengths is None:
+        return None
+    keep = torch.arange(t, device=lengths.device)[None] \
+        < lengths.clamp_min(1)[:, None]
+    return keep[:, None, None]
+
+
+class RelPositionMultiHeadAttention(nn.Module):
+    """Self-attention with relative positions in Transformer-XL form
+    (ESPnet's ``RelPositionMultiHeadedAttention``, latest): scores
+    ``((q + u) k^T + shift((q + v) (W_pos P)^T)) / sqrt(hd)``, so that the
+    position term at (i, j) is ``(q_i + v) . p_{i-j}``; keys where ``mask``
+    is False at ``finfo(float32).min``; softmax in f32; dropout on the
+    weights; output projection. ``pos`` is the bias-free position
+    projection, ``pos_bias_u`` / ``pos_bias_v`` the learned biases
+    [heads, hd]."""
+
+    def __init__(self, dmodel: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dmodel % num_heads:
+            raise ValueError(f"dmodel {dmodel} is not a multiple of "
+                             f"{num_heads} heads")
+        self.num_heads, self.head_size = num_heads, dmodel // num_heads
+        self.compute_dtype = dtype
+        self.query = Dense(dmodel, dmodel, dtype)
+        self.key = Dense(dmodel, dmodel, dtype)
+        self.value = Dense(dmodel, dmodel, dtype)
+        self.out = Dense(dmodel, dmodel, dtype)
+        self.pos = Dense(dmodel, dmodel, dtype, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(num_heads,
+                                                   self.head_size))
+        self.pos_bias_v = nn.Parameter(torch.zeros(num_heads,
+                                                   self.head_size))
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, T, d], pos [2T - 1, d], mask [B, 1, 1, T] -> [B, T, d]."""
+        b, t, _ = x.shape
+        h, hd, dt = self.num_heads, self.head_size, self.compute_dtype
+        q = self.query(x).view(b, t, h, hd)
+        k = self.key(x).view(b, t, h, hd).transpose(1, 2)
+        v = self.value(x).view(b, t, h, hd).transpose(1, 2)
+        p = self.pos(pos).view(-1, h, hd).transpose(0, 1)  # [h, 2T-1, hd]
+        ac = torch.matmul((q + self.pos_bias_u.to(dt)).transpose(1, 2),
+                          k.transpose(-1, -2))
+        bd = torch.matmul((q + self.pos_bias_v.to(dt)).transpose(1, 2),
+                          p.transpose(-1, -2))
+        scores = (ac.to(torch.float32) + rel_shift(bd).to(torch.float32)) \
+            / math.sqrt(hd)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+        w = self.dropout(torch.softmax(scores, dim=-1))
+        o = torch.matmul(w.to(dt), v)                      # [b, h, t, hd]
+        return self.out(o.transpose(1, 2).reshape(b, t, -1))
+
+
 def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int,
              generator: torch.Generator) -> None:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
@@ -514,7 +631,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             else:
                 nn.init.uniform_(m.weight, -m.init_limit, m.init_limit,
                                  generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Conv2d):
             rf = m.kernel_size[0] * m.kernel_size[1]
             _glorot_(m.weight, rf * m.in_channels, rf * m.out_channels,
@@ -530,6 +648,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             nn.init.uniform_(m.weight, -0.05, 0.05, generator=generator)
+        elif isinstance(m, RelPositionMultiHeadAttention):
+            for u in (m.pos_bias_u, m.pos_bias_v):
+                _glorot_(u, u.shape[1], u.shape[0], generator)
         elif isinstance(m, (LayerNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -58,14 +58,15 @@ def predict_step(model: ConformerCTC, wav: torch.Tensor,
                  decode: Optional[PhoneDecoder] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(wav [B, T], input_length [B]) -> (phone ids [B, T'], phone lengths
-    [B], char ids [B, T' + 10]): encode, CTC logits, decode the phones
+    [B], char ids [B, T' + 10]): encode (the frame lengths masking the
+    padded keys of a model that masks them), CTC logits, decode the phones
     (``decode``, a :func:`phone_decoder`; greedy by default), pad them with
     10 zeros, translate, argmax."""
     if blank_id is None:
         blank_id = model.num_phone_classes - 1
     if decode is None:
         decode = phone_decoder(blank_id, model.num_phone_classes)
-    enc = model.encode(wav)
+    enc = model.encode(wav, input_length)
     logits = model.ctc_logits(enc)
     phone_ids, phone_lens = decode(logits, input_length)
     padded = torch.nn.functional.pad(phone_ids, (0, TRANSLATOR_PAD))
@@ -144,16 +145,20 @@ class ASREngine:
     def _encode(self, pieces: Sequence[np.ndarray], rows: int
                 ) -> List[np.ndarray]:
         """The pieces zero padded into a [rows, chunk_samples] buffer, one
-        upload, one encode, one fetch of the pieces' rows; each piece's
-        output cut to its valid frames."""
+        upload, one encode (each row's valid frames as its length), one
+        fetch of the pieces' rows; each piece's output cut to its valid
+        frames."""
         buf = np.zeros((rows, self.chunk_samples), np.float32)
+        frames = np.ones(rows, np.int32)
+        quantum = self.chunk_samples / self.chunk_frames
         for i, piece in enumerate(pieces):
             buf[i, :len(piece)] = piece
-        enc = self.model.encode(torch.from_numpy(buf).to(self.device))
+            frames[i] = min(max(1, int(np.ceil(len(piece) / quantum))),
+                            self.chunk_frames)
+        enc = self.model.encode(torch.from_numpy(buf).to(self.device),
+                                torch.from_numpy(frames).to(self.device))
         enc = enc[:len(pieces)].cpu().numpy()
-        quantum = self.chunk_samples / self.chunk_frames
-        return [e[:min(max(1, int(np.ceil(len(p) / quantum))), e.shape[0])]
-                for e, p in zip(enc, pieces)]
+        return [e[:n] for e, n in zip(enc, frames)]
 
     def _decode(self, enc_outputs: Sequence[np.ndarray], pad_chunks: int):
         with telemetry.span("engine.decode", shared=True), torch.no_grad():

@@ -33,11 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from tensorflowasr_tpu_torch.models.conformer import (
-    ConformerConfig,
     ConformerCTC,
     build_model,
     count_params,
 )
+from tensorflowasr_tpu_torch.models.ebranchformer import offline_config
 from tensorflowasr_tpu_torch.ops.ctc import ctc_loss
 from tensorflowasr_tpu_torch.parallel import mesh as mesh_lib
 from tensorflowasr_tpu_torch.parallel.mesh import global_sum
@@ -244,7 +244,9 @@ def make_beam_predict_step(model: ConformerCTC, blank_id: int,
 
 
 class CTCTrainer(TrainerBase):
-    """Config-driven trainer: builds the model, the optimizer and the steps;
+    """Config-driven trainer of the offline family (a ConformerCTC, or an
+    EBranchformerCTC for ``model_config.name: EBranchformerCTC``): builds
+    the model, the optimizer and the steps;
     the fit / eval / checkpoint loop lives in :class:`TrainerBase`. Runs on
     ``device`` ("cuda" unless asked for "cpu"; a CUDA request without a card
     raises).
@@ -264,8 +266,7 @@ class CTCTrainer(TrainerBase):
         rc = config["running_config"] or {}
         self.set_mesh(mesh if mesh is not None else mesh_lib.make_data_mesh(
             int(cfg_get(rc, "batch_size", 16)), self.device))
-        self.model_cfg = ConformerConfig.from_user_config(config,
-                                                          compute_dtype)
+        self.model_cfg = offline_config(config, compute_dtype)
         if blank_id != num_phone_classes - 1:
             raise ValueError(
                 "CTCTrainer requires blank as the last class "
