@@ -43,6 +43,21 @@ Phases, in order; any failure raises and the script exits non-zero:
              matrix (K1 + ``dense_mel_kernel``) at B=128 x 7 s, 'same' and
              'valid', beside its plain version and ``torch.stft`` + the
              same dB + ``torch.matmul`` by that matrix.
+3b. rel_attention - RA (the relative-position attention kernel,
+             ``ops/rel_attention.py``) at the E-Branchformer (L) decode
+             buckets (B=32, 8 x 64 heads, T'=200 / 300 / 400 / 500, ragged
+             key masks, ``kernels/sweep_rel_attention.py::inputs``) through
+             ``rel_attention`` on card tensors: one launch a call, finite,
+             and its largest error against the plain composition in f32 at
+             most 1.5x the bf16 plain composition's. Times the kernel, the
+             plain composition it replaces and, as a yardstick the port
+             never calls, ``F.scaled_dot_product_attention`` with the
+             shifted, scaled position scores and the key mask as one
+             additive bf16 mask made beforehand, beside the bound of those
+             inputs' FLOPs and bytes. Then the full-width bf16
+             E-Branchformer (L) (``serve/bench_ebf_buckets.py``: 17 blocks)
+             decodes one B=32 batch a bucket with ``predict_step``, which
+             must launch RA once a block.
 4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
              kernel 32; 231 phone and 9161 char classes) with seeded random
              weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
@@ -331,10 +346,13 @@ pass), one a 'valid' one. Where a phase knows its number of frontend calls
 it must be exact. The stage breakdowns and the card-vs-CPU checks run
 outside those windows. K1's times at the request and the train shape go on
 ``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel phase.
+RA's launch count is set to 0 just before each of its calls and each
+predict step of the rel_attention phase, and read just after.
 The last lines are a JSON line of kernel numbers (K1's times at the serve
 shape, with the request, train, cli and the 'valid' shapes beside them, the
 largest error over all shapes and the launches inside loaded exported
-graphs; K1b's the same way), then ``{"ok":
+graphs; K1b's the same way; RA's at the 12 s bucket, with the four buckets
+and the predict steps' launches beside them), then ``{"ok":
 true, "device": {...}}``.
 TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
@@ -770,6 +788,115 @@ def phase_kernel() -> dict:
     log(json.dumps({"k1_train_shape": result["train_shape"]}))
     result.update(k1_numbers(128, 7 * SR, batched))
     return result
+
+
+def phase_rel_attention() -> dict:
+    """RA at the decode buckets, then its launches in the full-width
+    E-Branchformer (L)'s predict step; returns its entry of the kernels
+    line (the 12 s bucket's numbers, the four buckets beside them)."""
+    import torch.nn.functional as F
+
+    from tensorflowasr_tpu_torch.kernels import sweep_rel_attention as sweep
+    from tensorflowasr_tpu_torch.kernels.timing import cuda_times
+    from tensorflowasr_tpu_torch.ops import rel_attention as ra
+    from tensorflowasr_tpu_torch.serve import bench_ebf_buckets as ebf
+
+    buckets, worst = {}, 0.0
+    for t in sweep.LENGTHS:
+        q, k, v, bd, u, mask, _ = sweep.inputs(t, seed=t)
+        b, _, d = q.shape
+        h, hd = u.shape
+        want = ra.rel_attention_reference(
+            *(x.float() for x in (q, k, v, bd)), u, mask)
+        plain = ra.rel_attention_reference(q, k, v, bd, u, mask)
+        ra.rel_attention_cuda.launches = 0
+        got = ra.rel_attention(q, k, v, bd, u, mask)
+        torch.cuda.synchronize()
+        if ra.rel_attention_cuda.launches != 1:
+            raise AssertionError(f"RA at T'={t} launched "
+                                 f"{ra.rel_attention_cuda.launches} times")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"RA at T'={t}: non-finite values")
+        err = float((got.float() - want).abs().max())
+        err_plain = float((plain.float() - want).abs().max())
+        if err > 1.5 * err_plain:
+            raise AssertionError(
+                f"RA at T'={t}: largest error {err:.3e} above 1.5x the "
+                f"bf16 plain composition's {err_plain:.3e}")
+        worst = max(worst, err)
+
+        def heads(x):
+            return x.view(b, t, h, hd).transpose(1, 2)
+
+        qu, kh, vh = heads(q) + u[:, None].to(q.dtype), heads(k), heads(v)
+        bias = (ra.rel_shift(bd).float() / math.sqrt(hd)).masked_fill(
+            ~mask, float("-inf")).to(q.dtype)
+
+        def library():
+            return F.scaled_dot_product_attention(qu, kh, vh,
+                                                  attn_mask=bias)
+
+        lib_err = float((library().transpose(1, 2).reshape(b, t, d).float()
+                         - want).abs().max())
+        times = {
+            "kernel": cuda_times(
+                lambda: ra.rel_attention(q, k, v, bd, u, mask), 20, 10),
+            "plain": cuda_times(lambda: ra.rel_attention_reference(
+                q, k, v, bd, u, mask), 10, 2),
+            "library": cuda_times(library, 20, 10)}
+        work = sweep.bound(q, bd)
+        log(f"rel_attention: B={b}, {h} x {hd} heads, T'={t}: largest "
+            f"error {err:.3e} (bf16 plain {err_plain:.3e}, library "
+            f"{lib_err:.3e}) of entries up to {float(want.abs().max()):.3f};"
+            f" kernel {fmt_times(times['kernel'])}; plain "
+            f"{fmt_times(times['plain'])}; library "
+            f"{fmt_times(times['library'])}; bound_ms "
+            f"{work['bound_ms']:.4f} by {work['bound_by']} "
+            f"({work['whole_ms']:.4f} with bd whole)")
+        buckets[t] = {"ms": times["kernel"]["median"],
+                      "plain_ms": times["plain"]["median"],
+                      "library_ms": times["library"]["median"],
+                      "bound_ms": work["bound_ms"],
+                      "bound_by": work["bound_by"],
+                      "bd_whole_bound_ms": work["whole_ms"],
+                      "max_abs_err": err,
+                      "plain_bf16_max_abs_err": err_plain,
+                      "library_max_abs_err": lib_err}
+        del q, k, v, bd, want, plain, got, qu, kh, vh, bias
+        torch.cuda.empty_cache()
+
+    model = ebf.model()
+    blocks = len(model.encoder.blocks)
+    launches = {}
+    for seconds in ebf.BUCKETS:
+        wav, lengths = ebf.batch(seconds, seed=seconds)
+        ebf.decode(model, wav, lengths)             # warm
+        ra.rel_attention_cuda.launches = 0
+        ebf.decode(model, wav, lengths)
+        launches[seconds] = ra.rel_attention_cuda.launches
+        if launches[seconds] != blocks:
+            raise AssertionError(
+                f"the {seconds} s predict step launched RA "
+                f"{launches[seconds]} times, not once a block ({blocks})")
+    log(f"rel_attention: E-Branchformer (L) predict_step, B={ebf.B}: RA "
+        f"launches a batch at " + ", ".join(
+            f"{s} s {n}" for s, n in launches.items()))
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "name": "rel_attention", "route": "triton",
+        "source": "tensorflowasr_tpu_torch/ops/rel_attention.py",
+        # the JAX package has no E-Branchformer
+        "replaces": None,
+        "launches": sum(launches.values()), "launches_per_batch": blocks,
+        "max_abs_err": worst,
+        # the numbers above are the 12 s bucket's: B=32, 8 x 64, T'=300
+        **{key: buckets[300][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "batch": sweep.B, "heads": sweep.H, "head_size": sweep.HD,
+        "frames": 300,
+        "buckets": buckets,
+    }
 
 
 def batch_inputs(b: int, seconds: float, dev):
@@ -2731,9 +2858,9 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     model = engines["asr"].model
     encode = model.encode
 
-    def counting_encode(wav):
+    def counting_encode(wav, *lengths):
         encodes.append(wav.shape)
-        return encode(wav)
+        return encode(wav, *lengths)
     model.encode = counting_encode
     live_session(engines, packets)
     for wav in files[:1]:
@@ -4950,6 +5077,7 @@ def main() -> int:
     name = phase_device()
     phase_build()
     k1 = phase_kernel()
+    rel_attention = phase_rel_attention()
     models, batched = phase_serve()
     requested = phase_requests(models["float32"])
     del models
@@ -5084,7 +5212,7 @@ def main() -> int:
                          for key in k1_chunk["log_mel"]},
         "exported_graph_launches": exported[1],
     }
-    log(json.dumps({"kernels": [entry, log_mel]}))
+    log(json.dumps({"kernels": [entry, log_mel, rel_attention]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -32,7 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensorflowasr_tpu_torch.ops import rel_attention
+from tensorflowasr_tpu_torch.ops.rel_attention import rel_shift  # noqa: F401
 from tensorflowasr_tpu_torch.parallel.mesh import global_sum
+from tensorflowasr_tpu_torch.utils import telemetry
 
 NORM_EPS = 1e-3          # Keras LayerNormalization / BatchNormalization
 
@@ -541,15 +544,6 @@ class RelPositionalEncoding(nn.Module):
                 self.dropout(pos))
 
 
-def rel_shift(x: torch.Tensor) -> torch.Tensor:
-    """[..., T, 2T - 1] scores against the positions T - 1, ..., -(T - 1)
-    -> [..., T, T] whose entry (i, j) is the score against position i - j:
-    the Transformer-XL shift, one zero column and a reshape."""
-    *lead, t, p = x.shape
-    x = F.pad(x, (1, 0)).view(*lead, p + 1, t)
-    return x[..., 1:, :].reshape(*lead, t, p)[..., :p // 2 + 1]
-
-
 def key_mask(lengths: Optional[torch.Tensor], t: int
              ) -> Optional[torch.Tensor]:
     """[B, 1, 1, t] bool, True on each row's first ``lengths`` keys (at
@@ -569,7 +563,16 @@ class RelPositionMultiHeadAttention(nn.Module):
     is False at ``finfo(float32).min``; softmax in f32; dropout on the
     weights; output projection. ``pos`` is the bias-free position
     projection, ``pos_bias_u`` / ``pos_bias_v`` the learned biases
-    [heads, hd]."""
+    [heads, hd].
+
+    After the projections it takes one of two paths, by what it observes
+    (``ops/rel_attention.py``): on a CUDA input with no gradient recorded
+    and the weights' dropout inactive, the fused kernel, which never makes
+    the [T, T] weights and raises on a dtype or head size it does not take
+    (it takes bf16 at a head size of 64); else (training, which needs the
+    weights for dropout and autograd, and the CPU) the plain composition.
+    The recorder's counter ``ebranchformer.attention_kernel`` gets 1 a
+    call on the kernel, 0 on the plain path."""
 
     def __init__(self, dmodel: int, num_heads: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
@@ -590,26 +593,40 @@ class RelPositionMultiHeadAttention(nn.Module):
                                                    self.head_size))
         self.dropout = Dropout(dropout)
 
+    def _fused(self, x: torch.Tensor) -> bool:
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or self.query.weight.requires_grad)
+        return (x.is_cuda and not grad
+                and (not self.dropout.training or self.dropout.rate == 0.0))
+
     def forward(self, x: torch.Tensor, pos: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, d], pos [2T - 1, d], mask [B, 1, 1, T] -> [B, T, d]."""
         b, t, _ = x.shape
         h, hd, dt = self.num_heads, self.head_size, self.compute_dtype
-        q = self.query(x).view(b, t, h, hd)
-        k = self.key(x).view(b, t, h, hd).transpose(1, 2)
-        v = self.value(x).view(b, t, h, hd).transpose(1, 2)
+        q, k, v = self.query(x), self.key(x), self.value(x)
         p = self.pos(pos).view(-1, h, hd).transpose(0, 1)  # [h, 2T-1, hd]
-        ac = torch.matmul((q + self.pos_bias_u.to(dt)).transpose(1, 2),
-                          k.transpose(-1, -2))
-        bd = torch.matmul((q + self.pos_bias_v.to(dt)).transpose(1, 2),
-                          p.transpose(-1, -2))
-        scores = (ac.to(torch.float32) + rel_shift(bd).to(torch.float32)) \
-            / math.sqrt(hd)
-        if mask is not None:
-            scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
-        w = self.dropout(torch.softmax(scores, dim=-1))
-        o = torch.matmul(w.to(dt), v)                      # [b, h, t, hd]
-        return self.out(o.transpose(1, 2).reshape(b, t, -1))
+        qv = q.view(b, t, h, hd) + self.pos_bias_v.to(dt)
+        fused = self._fused(x)
+        telemetry.count("ebranchformer.attention_kernel", float(fused),
+                        shared=True)
+        if fused:
+            # h products over all B x T queries, so P is not broadcast over
+            # the batch, into rows padded to a multiple of 8 positions (16
+            # bytes), which cuBLAS writes with aligned stores; bd is a
+            # [B, h, T, 2T-1] view of the [h, B, T, 8k] buffer
+            n = p.shape[1]
+            pad = F.pad(p, (0, 0, 0, -n % 8))
+            bd = torch.matmul(qv.view(b * t, h, hd).transpose(0, 1),
+                              pad.transpose(-1, -2))
+            bd = bd.view(h, b, t, -1)[..., :n].transpose(0, 1)
+            o = rel_attention.rel_attention(q, k, v, bd, self.pos_bias_u,
+                                            mask)
+        else:
+            bd = torch.matmul(qv.transpose(1, 2), p.transpose(-1, -2))
+            o = rel_attention.rel_attention_reference(
+                q, k, v, bd, self.pos_bias_u, mask, self.dropout)
+        return self.out(o)
 
 
 def _glorot_(w: torch.Tensor, fan_in: int, fan_out: int,

@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from tensorflowasr_tpu_torch.kernels import sweep_rel_attention as ra_sweep
+from tensorflowasr_tpu_torch.models import layers
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops import log_mel_spectrogram as k1b
 from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
+from tensorflowasr_tpu_torch.ops import rel_attention as ra
+from tensorflowasr_tpu_torch.utils import telemetry
 
 # the Pallas kernel's own tolerance (tests/test_pallas_frontend.py)
 POWER_TOL = dict(rtol=2e-4, atol=2e-3)
@@ -234,3 +238,84 @@ def test_log_mel_kernel_is_sync_free_and_graph_safe_on_card(padding):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(again, eager) and torch.equal(captured, eager)
+
+
+def _largest_error(got, want):
+    return float((got.float() - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", ra_sweep.LENGTHS)
+def test_rel_attention_kernel_matches_plain_on_card(t):
+    """The E-Branchformer (L) decode buckets (B = 32, 8 heads of 64, T' =
+    200-500, ragged lengths): one launch a call; against the plain
+    composition in f32 on the same bf16 inputs, the kernel's largest error
+    at most 1.5x the bf16 plain composition's (the kernel keeps (q + u) k^T
+    in f32 where the plain version rounds it to bf16, so it is expected at
+    or under 1x); and what the masked keys, their values and their
+    position scores hold leaves every row bit for bit alone."""
+    _card()
+    q, k, v, bd, u, mask, lengths = ra_sweep.inputs(t, seed=t)
+    want = ra.rel_attention_reference(*(x.float() for x in (q, k, v, bd)),
+                                      u, mask)
+    plain = ra.rel_attention_reference(q, k, v, bd, u, mask)
+    before = ra.rel_attention_cuda.launches
+    got = ra.rel_attention_cuda(q, k, v, bd, u, mask)
+    torch.cuda.synchronize()
+    assert ra.rel_attention_cuda.launches == before + 1
+    assert _largest_error(got, want) <= 1.5 * _largest_error(plain, want)
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(2 * t - 1, device=q.device)[None] + i - (t - 1)
+    k, v, bd = k.clone(), v.clone(), bd.clone()
+    for r, n in enumerate(lengths.tolist()):
+        k[r, n:], v[r, n:] = 1e4, float("nan")
+        bd[r][:, (j >= n) | (j < 0)] = float("nan")
+    again = ra.rel_attention_cuda(q, k, v, bd, u, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_rel_attention_module_takes_the_kernel_on_card():
+    """``RelPositionMultiHeadAttention`` in bf16, eval, under ``no_grad``:
+    one kernel launch and a 1 on the recorder's counter a call; with a
+    gradient to record, the plain path and a 0. Against the same module in
+    f32 on the CPU (the plain path), the kernel path's largest error at
+    most 1.5x the bf16 plain path's. The f32 module on the card, in eval
+    under ``no_grad``, raises: the kernel takes bf16 alone, and the module
+    does not fall back."""
+    _card()
+    d, h, t = 512, 8, 300
+    g = torch.Generator().manual_seed(3)
+    mods = {dt: layers.RelPositionMultiHeadAttention(d, h, 0.1, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    with torch.no_grad():
+        for name, w in mods[torch.bfloat16].state_dict().items():
+            w.copy_(torch.randn(w.shape, generator=g) / (
+                1.0 if name.startswith("pos_bias") else d ** 0.5))
+        mods[torch.float32].load_state_dict(
+            mods[torch.bfloat16].state_dict())
+    for m in mods.values():
+        m.eval()
+    x = torch.randn(4, t, d, generator=g)
+    pos = torch.from_numpy(layers.rel_positional_encoding(t, d))
+    mask = layers.key_mask(torch.tensor([t, 250, 1, 123]), t)
+    with torch.no_grad():
+        want = mods[torch.float32](x, pos, mask).cuda()
+    x, pos, mask = x.cuda(), pos.cuda(), mask.cuda()
+    attn = mods[torch.bfloat16].cuda()
+    telemetry.reset()
+    before = ra.rel_attention_cuda.launches
+    with torch.no_grad():
+        fused = attn(x, pos, mask)
+    plain = attn(x, pos, mask).detach()
+    torch.cuda.synchronize()
+    assert ra.rel_attention_cuda.launches == before + 1
+    assert telemetry.between("ebranchformer.attention_kernel")[:, 1]\
+        .tolist() == [1.0, 0.0]
+    telemetry.reset()
+    assert _largest_error(fused, want) <= 1.5 * _largest_error(plain, want)
+    with torch.no_grad(), pytest.raises(ValueError):
+        mods[torch.float32].cuda()(x, pos, mask)
+    assert ra.rel_attention_cuda.launches == before + 1
+    telemetry.reset()
