@@ -1,361 +1,195 @@
-"""Drive the PyTorch port's offline ConformerCTC(S) serving and training
-paths, its chunk-streaming ChunkConformer(S) serving and training paths, its
-socket model server, its VAD and punctuation serving and training, its
-block-streaming ConformerCTC, its CTC prefix beam search with n-gram
-shallow fusion, the LEAF and ``add_wav_info`` options, its export through
-``torch.export``, its RNN-T loss, its data and tensor parallelism and the
-head-to-head recipe's quick run (learning quality) on one CUDA card, and
-check them.
+"""Check the PyTorch port on one CUDA card, path by path, against the CPU,
+against fixed bounds and against what each path must launch. It times
+nothing: speed end to end is ``benchmark/``'s and one kernel's the
+``kernels/sweep_*.py`` scripts'. Each kernel's edge cases (short, ragged,
+unaligned and strided inputs, graph capture) are ``pytest -m cuda
+tests/test_torch_kernels_cuda.py``'s; phase 3 holds each kernel at the main
+path's shapes, which the card tests read from the same ``testing.py``.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi); raises without
-             CUDA.
-2. build   - nvcc builds every kernel in ``tensorflowasr_tpu_torch/csrc``.
-3. kernel  - K1 (the power-spectrogram kernel, one FFT per frame in shared
-             memory) and K1b (the log-mel kernel: K1's FFT with the dB and
-             the banded mel product fused behind it; two launches for
-             'same', the first for each row's max) against their plain
-             PyTorch versions, TF32 off, at every shape a later phase gives
-             them: 'same' at B=128 x 7 s (serve), the one-chunk request
-             shape (B=1 x 7680 samples), the train batch (B=128 x 8 s), the
-             cli phase's buckets (B=8 x 2 s and 4 s) and the card-against-
-             CPU batch (B=2 x 1 s), the block-streaming fold (B=1920 x
-             7680: 128 x 7.2 s in chunks); and 'valid' at B=16 x 7680
-             samples and a ragged T, so that both of K1's slab-copy paths
-             are taken;
-             power within rtol 2e-4 / atol 2e-3, log-mel within rtol 1e-3 /
-             atol 5e-2; K1b's backward (a given mel matrix) against the
-             plain version's autograd at the cli buckets, within 1e-4 of the
-             gradient's largest entry. Times K1, its plain version and
-             ``torch.stft`` at the serve, the request and the train shape,
-             each with median, minimum and spread, beside that shape's
-             bound, and at the cli buckets (with a CUDA graph replay, since
-             events time the host there); and K1b at the serve, train and
-             request shapes beside K1 + the plain dB and mel matmul (the
-             path K1b replaced, at the serve shape), the plain version and
-             ``torch.stft`` + the same dB and mel, with its bound counted
-             both ways (the mel product dense, and banded as the kernel
-             does it); K1b also at the block-streaming fold. Then K1b with
-             a given (trainable) [513, 80]
-             matrix (K1 + ``dense_mel_kernel``) at B=128 x 7 s, 'same' and
-             'valid', beside its plain version and ``torch.stft`` + the
-             same dB + ``torch.matmul`` by that matrix.
-3b. rel_attention - RA (the relative-position attention kernel,
-             ``ops/rel_attention.py``) at the E-Branchformer (L) decode
-             buckets (B=32, 8 x 64 heads, T'=200 / 300 / 400 / 500, ragged
-             key masks, ``kernels/sweep_rel_attention.py::inputs``) through
-             ``rel_attention`` on card tensors: one launch a call, finite,
-             and its largest error against the plain composition in f32 at
-             most 1.5x the bf16 plain composition's. Times the kernel, the
-             plain composition it replaces and, as a yardstick the port
-             never calls, ``F.scaled_dot_product_attention`` with the
-             shifted, scaled position scores and the key mask as one
-             additive bf16 mask made beforehand, beside the bound of those
-             inputs' FLOPs and bytes. Then the full-width bf16
-             E-Branchformer (L) (``serve/bench_ebf_buckets.py``: 17 blocks)
-             decodes one B=32 batch a bucket with ``predict_step``, which
-             must launch RA once a block.
-4. serve   - the full-width model (dmodel 144, 13 blocks, 4 x 36 heads,
-             kernel 32; 231 phone and 9161 char classes) with seeded random
-             weights: ``predict_step`` on B=128 x 7 s in f32 and bf16, with a
-             per-stage time breakdown; the f32 outputs are held against the
-             same model run on the CPU (plain frontend) on a small input.
-5. request - ``OfflineASRSession`` answers 4 requests (2, 3.5, 5, 8 s).
-6. train   - ``CTCTrainer`` built from ``configs/am_data.yml`` +
-             ``configs/conformerS.yml`` (full width, dropout 0.1, Adam lr
-             1e-4), seeded weights, on the training benchmark's batch (B=128
-             x 8 s of noise, 64 phones, 32 chars): one warm step, then 10
-             timed ``train_step`` calls on that batch and 10 more enqueued
-             back to back, in bf16 and in f32. Every loss must be finite,
-             the last below the first, the BatchNorm running statistics
-             must have moved, and K1 must have run once a step. Prints
-             step time, audio seconds per second, peak memory and, in f32
-             (where the card is the limit), a forward / loss / backward /
-             optimizer split of one more ``train_step`` by CUDA events.
-             Then, from the same weights with dropout 0, one f32 loss and
-             backward on B=2 x 1 s on the card and on the CPU (plain
-             frontend): loss within 1e-4 relative, the gradient's global
-             norm within 1e-3 relative; and ``ctc_loss`` alone on the card
-             against the CPU, with an infeasible row whose loss and
-             gradient must be 0.
-7. cli     - writes a seeded corpus (40 tone + noise wavs of 1-3 s, lists,
-             a pinyin map, 230-phone and 9160-char vocabularies, a data
-             YAML) to a temporary directory, runs the port's
-             ``cli.train_asr`` on it with ``configs/conformerS.yml`` for 6
-             steps with a save, then ``cli.eval_am`` from that checkpoint,
-             which must restore it and print its JSON of phone and char
-             error rates.
-8. chunk_kernel  - K1 'valid' at the chunk path's shapes (B=1 x 5120,
-             the stream step's mel of [wav tail | chunk]; B=256 x 5120, the
-             pool tick's; B=128 x 7 s, the offline batch; B=1 x 8 s, the
-             chunk CLI's offline decode; B=128 x 8 s, the chunk train batch;
-             B=8 x 33280 and 64000, the chunk train CLI's buckets; B=2 x
-             20480, the card-against-CPU batch) against its plain version,
-             with K1b 'valid' held at each; then K1 at all but the last
-             timed with the plain version and ``torch.stft`` (left pad
-             1023, ``center=False``) + ``abs()**2``: CUDA events at every
-             shape, and a CUDA graph replay at all but the offline batch;
-             and K1b the same way at the stream, pool, offline and chunk
-             train shapes.
-9. chunk_offline - ChunkConformer(S) from ``configs/chunk_conformerS.yml``
-             at full width (``serve/bench_chunk.py``: seeded weights, first
-             conv x10, the picker's blank bias moved so about half the
-             frames are picked): ``make_chunk_predict_step`` on B=128 x 7 s
-             in f32 and bf16, median of 5, per-stream RTF; 20-80 % of the
-             frames picked, every row picking some.
+             CUDA. TF32 is off throughout, so every f32 number is full f32.
+2. build   - nvcc builds every kernel in ``tensorflowasr_tpu_torch/csrc``;
+             prints the registers and spills it reports.
+3. kernel  - K1 and K1b against their plain versions on card tensors, in
+             'same' and 'valid', at every shape of ``testing.MAIN_PATH``
+             (B=128 x 7 s and 8 s, the block-streaming fold [1920, 7680],
+             the CLI buckets, the chunk path's stream, pool and CLI shapes,
+             the card-against-CPU batches) and the 0.48 s request chunk,
+             within the card tests' tolerances, K1 once and K1b once a
+             call, both copy paths taken; K1b with a given mel matrix and
+             its backward at B=8 x 2 s and 4 s, the gradient within 1e-4 of
+             its largest entry; RA at the four decode buckets (B=32, T' =
+             200-500), one launch a call, its largest error at most 1.5x
+             the bf16 plain composition's against the f32 one.
+4. ebranchformer - the full-width bf16 E-Branchformer (L)
+             (``configs/ebranchformerL.yml``, seeded) through
+             ``predict_step`` at B=32 x 8 / 12 / 16 / 20 s with ragged
+             frame lengths: RA once in each of the 17 blocks, K1 and K1b
+             once a call, ids and lengths in range.
+5. serve   - the full-width ConformerCTC(S) (231 phone and 9161 char
+             classes, seeded weights): ``predict_step`` on B=128 x 7 s in
+             f32 and bf16, shapes and ids in range; the f32 encoder and CTC
+             logits within 1e-3 of the same model on the CPU on B=2 x 1 s.
+6. request - ``OfflineASRSession`` answers 4 requests (2, 3.5, 5, 8 s),
+             one segment each.
+7. train   - ``CTCTrainer`` from ``configs/am_data.yml`` +
+             ``configs/conformerS.yml`` (dropout 0.1, Adam lr 1e-4) on B=128
+             x 8 s of noise, 64 phones, 32 chars, bf16 and f32: 11 steps,
+             every loss finite, the last below the first, every BatchNorm
+             running statistic moved. Then one f32 loss and backward at
+             dropout 0 on B=2 x 1 s on the card and on the CPU (loss within
+             1e-4 relative, the gradient's global norm within 1e-3), and
+             ``ctc_loss`` alone on both, an infeasible row's loss and
+             gradient 0.
+8. cli     - a seeded corpus with full-size vocabularies in a temporary
+             directory; ``cli.train_asr`` for 6 steps with saves, then
+             ``cli.eval_am`` restoring step 6: checkpoints, logged steps and
+             finite error rates.
+9. chunk_offline - ChunkConformer(S) (``configs/chunk_conformerS.yml``,
+             ``testing.chunk_models``: first conv x10, the picker's blank
+             bias at the median margin): ``make_chunk_predict_step`` on
+             B=128 x 7 s of tones in f32 and bf16, 20-80 % of the frames
+             picked, every row picking and decoding something.
 10. chunk_stream - one stream in f32 and bf16: ``fused_stream_step``
-             chained over 50 chunks on its caches with one sync at the end
-             (best of 3), every implicit host sync an error
-             (``torch.cuda.set_sync_debug_mode``); then ``ChunkStreamSession``
-             with a fetch a chunk. In f32 the session's phone ids on the 8 s
-             signal must equal the collapsed argmax of the offline
-             ``encode_to_phones``, and ``picker_stream_step``'s logits on the
-             card must be within 1e-3 of the CPU port's.
-11. chunk_pool   - ``batched_stream_step`` over 256 slots, f32 and bf16,
-             chained as bench.py:239-286 does (best of 10 x 25 ticks, no
-             implicit sync), and ``MultiStreamChunkServer.tick`` draining 25
-             chunks of every slot (upload, step, fetch): tick ms, streams in
-             real time (256 x 0.16 s / tick), per-stream RTF, peak memory.
-             Then 4 streams of 2, 3.5, 5 and 8 s go through a 256-slot pool
-             in interleaved odd-sized packets, the 4th opened when the first
-             closes; each result must equal an independent
-             ``ChunkStreamSession``'s on the card.
-11b. chunk_fused - the f32 model with ``fused_decoder`` set on the same
-             weights (``serve/bench_chunk.py::with_fused_decoder``) against
-             the sequential decoder micro-steps: one stream over 50 chunks
-             and a 256-slot pool over 12 ticks with random reset and advance
-             masks. Phone ids and n_final identical; char and provisional
-             ids identical except at a near-tie of the fused decoder's
-             logits (top-two gap within 1e-5 of the top logit's magnitude,
-             each reported with its gap; more than 1 % such positions
-             fails); every cache leaf within 1e-3 of its largest entry (the
-             largest error printed). Then both paths timed in turns: one
-             stream chained over 50 chunks (best of 3) and the 256-slot tick
-             (best of 10 x 25), with median, minimum and spread, every
-             implicit sync an error, K1b once a chunk and a tick exactly;
-             then each profiled at 1 and 256 slots
-             (``serve/profile_chunk.py::profile``: kernels and copies, device
-             time and wall a chunk).
-12. chunk_cli    - ``cli.test_chunk_asr --device cuda`` on an 8 s wav in a
-             temporary directory (the cli phase's full-size vocabularies),
-             with the f32 chunk model's weights written as a flax ``.npz``
-             for ``--weights``: its streamed phones must equal its offline
-             phones, and K1 must run once a chunk.
-13. chunk_train  - ``ChunkTrainer`` built from ``configs/am_data.yml`` +
-             ``configs/chunk_conformerS.yml`` (full width, Adam lr 1e-4),
-             seeded weights calibrated as the serving phases' in training
-             mode (``train/bench_chunk_batch.py``), on B=128 x 8 s of gated
-             tones, 64 phones, 32 chars, 64 extra phones, 32 extra chars, in
-             f32 and bf16: one warm step, 10 steps back to back, then 10
-             timed one by one (median). Every loss must be finite and K1
-             must have run once a step. Prints step time, audio seconds per
-             second, peak memory, the picked share and ``t_ref`` before and
-             after the steps, and (f32) a forward / loss / backward /
-             optimizer split by CUDA events. One more step runs with every
-             implicit host sync reported (``set_sync_debug_mode("warn")``),
-             printed with the port's line that caused it, as a warning;
-             were there none, a step would run with syncs as errors.
-14. chunk_train_card_vs_cpu - one f32 loss + backward of the same
-             calibrated full-width model on B=2 x 1.28 s on the card and on
-             the CPU (plain frontend): the same picks, loss within 1e-4
-             relative, the gradient's global norm within 1e-3 relative.
-15. chunk_train_cli - on phase 7's corpus, ``cli.train_asr`` with
-             ``configs/chunk_conformerS.yml`` at B=8 for 3 steps with a save,
-             then ``cli.eval_am`` and ``cli.test_chunk_asr`` (no
-             ``--weights``) on an 8 s wav, both restoring that checkpoint:
-             error rates finite, streamed phones = offline phones.
-16. serve_socket - ``cli.serve_model.build_ops`` (what ``main`` serves) on
-             phase 7's ConformerCTC(S) checkpoint and phase 15's
-             ChunkConformer(S) checkpoint, ``fused_decoder`` set in a copy
-             of the shipped chunk config, a 256-slot pool, served by
-             ``ModelServer`` on a 127.0.0.1 TCP port with the offline ops on
-             the main thread, after each checkpoint is saved again as
-             its next step with its blank bias calibrated (as
-             ``serve/bench_chunk.py`` does; else every frame decodes as
-             blank). One ``ModelClient`` streams the 8 s file
-             alone, then 4 client threads each send one file of 2 / 3.5 / 5
-             / 8 s: offline (``info``, ``encode`` a 0.48 s chunk,
-             ``ctc_logits``, ``translate``, decoded as ``ASREngine.decode``
-             does) and streamed (``stream_open``, ``stream_feed`` in
-             odd-sized packets, ``stream_close``). Every result must equal
-             the in-process ``ASREngine``'s and an independent
-             ``ChunkStreamSession``'s on the same checkpoints, none empty,
-             and the encoder rows, CTC and char logits that came over the
-             wire must be within 1e-5 of the same calls in process; a
-             failing client fails the phase. Prints each file's request round trip,
-             ``stream_feed``'s wall a chunk (median, p90) alone and with 4
-             clients, and how many chunks each tick coalesced.
-17. serve_vad_punc - phase 7's calibrated ConformerCTC(S) checkpoint
-             under the VAD state machine with punctuation: a full-width
-             OnlineVAD (``configs/vad_model.yml``) and PuncTransformer
-             (``configs/punc_settings.yml``, over the ASR's chars but every
-             7th) with seeded weights, their last layers calibrated
-             (``serve/bench_vad_punc.py``: tone bursts >= 0, gaps < 0; a
-             quarter of the positions punctuated). ``StreamASRSession`` on 8
-             s of tone bursts in 20 ms pcm16 packets then ``final_send``, and
-             ``OfflineASRSession`` with VAD and punctuation on 2 / 3.5 / 5 / 8
-             s files (each also without VAD, timed), after a warm pass; the
-             same objects copied to the CPU must give the same events, texts
-             and segments, the encoder rows within 1e-3; near-ties are
-             reported (VAD |logit|, punctuation probability against its
-             threshold, CTC and char top-two gaps); no sentence begin or end,
-             or every text empty, fails. Then ``cli.serve_model.build_ops``
-             with the VAD configs (the calibrated VAD saved as their
-             checkpoint) serves the ``vad`` op over 127.0.0.1 to one client,
-             within 1e-5 of the in-process ``VADEngine``; and the offline,
-             chunk (phase 15's checkpoint) and VAD native artifacts are
-             written twice (the same bytes) and read back through their
-             manifests, every tensor equal to the model's bit for bit.
-             Prints each packet's wall by event type (median, p90), the
-             stream's wall against its 8 s, each file's wall with and without
-             VAD, ``VADEngine.inference`` on 1 s of 8 kHz audio and one 64-
-             token ``PuncEngine`` window, and its exact K1b launches (one an
-             encode).
-18. vad_punc_train - VAD and punctuation training at the shipped widths:
-             OnlineVAD (``configs/vad_model.yml``) f32 train steps at
+             chained over 50 chunks with every implicit host sync an error
+             (``torch.cuda.set_sync_debug_mode``), then ``ChunkStreamSession``;
+             in f32 the session's phone ids equal the collapsed argmax of the
+             offline ``encode_to_phones``, and ``picker_stream_step``'s
+             logits are within 1e-3 of the CPU's.
+11. chunk_pool - ``batched_stream_step`` over 256 slots in f32 and bf16,
+             chained over 25 ticks with no implicit sync, and
+             ``MultiStreamChunkServer.tick`` draining 25 chunks of every
+             slot; then 4 streams of 2, 3.5, 5 and 8 s in interleaved
+             odd-sized packets, the 4th opened when the first closes, each
+             equal to an independent ``ChunkStreamSession``.
+12. chunk_fused - the f32 model with ``fused_decoder`` set on the same
+             weights against the sequential decoder: one stream over 50
+             chunks and a 256-slot pool over 12 ticks with random reset and
+             advance masks. Phone ids and n_final identical; char and
+             provisional ids identical except at a near-tie of the fused
+             logits (top-two gap within 1e-5 of the top logit; more than 1 %
+             such positions fails); every cache leaf within 1e-3 of its
+             largest entry. Both paths then chained, one stream and the
+             256-slot tick, with no implicit sync.
+13. chunk_cli - ``cli.test_chunk_asr --device cuda`` on an 8 s wav with the
+             f32 chunk model written as a flax ``.npz`` for ``--weights``:
+             streamed phones = offline phones.
+14. chunk_train - ``ChunkTrainer`` (``testing.new_chunk_trainer``: the
+             picker calibrated in training mode) on B=128 x 8 s of tones, 64
+             + 64 phones, 32 + 32 chars, f32 and bf16: 11 steps, every loss
+             finite. Then one f32 loss and backward on B=2 x 1.28 s on the
+             card and on the CPU: the same picks, loss within 1e-4
+             relative, the gradient's global norm within 1e-3.
+15. chunk_train_cli - on phase 8's kind of corpus, ``cli.train_asr`` with
+             the chunk config for 3 steps with a save, then ``cli.eval_am``
+             and ``cli.test_chunk_asr`` restoring it: finite error rates,
+             streamed phones = offline phones.
+16. serve_socket - ``cli.serve_model.build_ops`` on phase 8's and phase 15's
+             checkpoints (blank biases calibrated and saved as the next
+             step; ``fused_decoder`` set in a copy of the chunk config; a
+             256-slot pool) served by ``ModelServer`` on a 127.0.0.1 port.
+             One client streams the 8 s file alone, then 4 client threads
+             each send a file of 2 / 3.5 / 5 / 8 s offline (``info``,
+             ``encode``, ``ctc_logits``, ``translate``) and streamed. Every
+             result equals the in-process ``ASREngine``'s and an independent
+             ``ChunkStreamSession``'s, none empty; the encoder rows, CTC and
+             char logits over the wire are within 1e-5 of the same calls in
+             process; a failing client fails the phase.
+17. serve_vad_punc - phase 8's checkpoint as phase 16 calibrated it, under
+             the VAD state
+             machine with punctuation: a full-width OnlineVAD and
+             PuncTransformer with seeded weights, their last layers
+             calibrated (``testing.calibrate_vad``, ``calibrate_punc``).
+             ``StreamASRSession`` on 8 s of tone bursts in 20 ms pcm16
+             packets, and ``OfflineASRSession`` with VAD and punctuation on
+             2 / 3.5 / 5 / 8 s files (each also without VAD): the same
+             objects on the CPU give the same events, texts and segments,
+             the encoder rows within 1e-3; a sentence begins and ends, a
+             text is punctuated, every file splits. Then the ``vad`` op of
+             ``cli.serve_model.build_ops`` over 127.0.0.1, within 1e-5 of
+             ``VADEngine`` in process; and the offline, chunk and VAD native
+             artifacts written twice with the same bytes and read back bit
+             for bit.
+18. beam_lm - an order-3 phone LM by ``cli.train_lm`` on phase 8's corpus
+             and one over all 231 phones from a seeded corpus; the card's
+             hash lanes equal to ``_hash_tuple``'s and ``score_candidates``
+             within 1e-6 (and one f32 ulp) of ``NGramLM.score``;
+             ``make_beam_predict_step`` (W 8, K 16, LM weight 0.3) and the
+             greedy ``predict_step`` on B=128 x 7 s of tones, the beam
+             again with every implicit sync an error (the same ids), and 8
+             rows against the CPU: best beams equal except at a near-tie of
+             the top two (within 1e-4 of the top score), live scores within
+             1e-4 relative; ``cli.eval_am --lm`` on the card and on the CPU,
+             the same JSON; ``cli.serve_model.build_ops --lm`` served on
+             127.0.0.1, an 8 s file decoded with the beam on the host
+             against the in-process beam ``ASREngine`` on the CPU;
+             ``cli.train_asr --data_procs 2`` and ``0``, 3 finite steps each
+             (the workers fail if CUDA starts in them).
+19. vad_punc_train - OnlineVAD (``configs/vad_model.yml``) at
              ``configs/vad_data.yml``'s B=16 x 6 s at 8 kHz from
-             ``VADDataLoader`` on a seeded corpus, one step folded by
-             ``streaming_reshape``, one OfflineVAD step; PuncTransformer
-             (``configs/punc_settings.yml``) at B=32 x 64 tokens with and
-             without 768-d teacher features; each traced once
-             (``utils/profiling.py::trace``), each model's loss and gradient
-             norm on the card against the CPU (1e-4 / 1e-3 relative); then
-             ``cli.train_vad`` -> ``cli.eval_vad --export_native`` and
-             ``cli.train_punc --bert_feature_dir`` -> ``cli.eval_punc``,
-             each eval restoring. K1 and K1b must not launch on this path.
-19. block_stream - ConformerCTC with ``streaming: true`` (a temporary copy
-             of ``configs/am_data.yml``) and
-             ``configs/Streaming_ConformerS.yml`` at full width, seeded: ``predict_step`` f32 at B=128 x 7.2 s
-             (K1b 'same' on the fold [1920, 7680]) with its stage split; f32
-             train steps at B=128 x 8.16 s (the loader's 8 s bucket in whole
-             chunks) with their split and a trace; the encoder, loss and
-             gradient norm on the card against the CPU on B=2 x 2 chunks;
-             ``cli.train_asr`` -> ``cli.eval_am`` -> ``cli.test_asr`` on
-             phase 7's kind of corpus (a 16-chunk wav: the JAX test_asr
-             raises on a wav that is not whole chunks, and the port keeps
-             that); ``OfflineASRSession`` on 2 / 3.5 / 5 / 8 s files, its
-             per-chunk encoder rows within 1e-3 of the folded encode.
-20. beam_lm - on phase 7's corpus and its calibrated checkpoint (phase
-             16): an order-3 phone LM by ``cli.train_lm`` on that corpus and
-             one over all 231 phones by ``train_ngram_lm`` on a seeded
-             corpus; the card's hash lanes equal to ``_hash_tuple``'s
-             (tokens just below 2^32) and ``score_candidates`` on the card
-             within 1e-6 (and one f32 ulp) of ``NGramLM.score``, BOS contexts
-             included; ``make_beam_predict_step`` (W 8, K 16, the 231-phone
-             LM at 0.3) on B=128 x 7 s of gated tones beside the greedy
-             ``predict_step`` (median of 5 each, waited for), one trace of
-             each (kernels and copies a call, device busy share), one beam
-             call with every implicit sync an error, and 8 rows against the
-             same step on the CPU: best-beam phone ids equal except at a
-             near-tie of the top two beams (reported with its gap), live
-             scores within 1e-4 relative; ``cli.eval_am --lm`` on the card
-             and on the CPU, the same JSON; ``cli.serve_model.build_ops
-             --lm`` served on 127.0.0.1, an 8 s file decoded with the beam on
-             the host from the served ops against the in-process beam
-             ``ASREngine`` on the CPU; ``cli.train_asr --data_procs 2`` and
-             ``0`` for 3 steps each, finite losses, steps/s side by side (the
-             workers hide the card and fail if CUDA starts in them).
+             ``VADDataLoader``, one step folded by ``streaming_reshape``,
+             one OfflineVAD step; PuncTransformer at B=32 x 64 tokens with
+             and without 768-d teacher features; finite losses; each model's
+             loss and gradient norm on the card against the CPU (1e-4 /
+             1e-3 relative); ``cli.train_vad`` -> ``cli.eval_vad
+             --export_native`` and ``cli.train_punc --bert_feature_dir`` ->
+             ``cli.eval_punc``, each eval restoring. K1 and K1b must not
+             launch on this path.
+20. block_stream - ConformerCTC with ``streaming: true`` and
+             ``configs/Streaming_ConformerS.yml`` (full width, seeded):
+             ``predict_step`` f32 at B=128 x 7.2 s (K1b on the fold [1920,
+             7680]); f32 train steps at B=128 x 8.16 s, finite losses; the
+             encoder, loss and gradient norm on the card against the CPU on
+             B=2 x 2 chunks; ``cli.train_asr`` -> ``cli.eval_am`` ->
+             ``cli.test_asr`` on a 16-chunk wav; ``OfflineASRSession`` on 2 /
+             3.5 / 5 / 8 s files, one batched encode a file, its encoder
+             rows within 1e-3 of the folded encode.
 21. leaf_wav_export - (a) ``add_wav_info: true`` and (b) ``mel_layer_type:
-             leaf`` on the full-width ConformerCTC(S) (seeded): f32
-             ``predict_step`` at B=128 x 7 s, median of 5, in turns with
-             the plain model's (5 calls before and 5 after), with the
-             ``wav_layer``'s, LEAF's and PCEN's CUDA-event share of one step
-             and the peak memory; a warm and 2 timed f32 train steps at
-             B=32 x 8 s with finite losses; the encoder, loss and gradient
-             norm on the card against the CPU on B=2 x 1 s (1e-3, 1e-4 and
-             1e-3 relative); K1 and K1b once a call with add_wav_info,
-             never with LEAF. (c) ``export_offline_asr`` of phase 16's
-             calibrated ConformerCTC(S) checkpoint and
-             ``export_chunk_streaming`` of its ChunkConformer(S) checkpoint
-             on the card, loaded back (``load_exported``): the encoder and
-             the picker each hold one ``tasr::log_mel_spectrogram`` node and
-             launch K1 and K1b once a call; encoder, ctc_model and
-             translator at B=1 x 7 s, and the picker and decoder threaded
-             over 10 chunks, within rtol 1e-4 / atol 1e-4 of the eager
-             models (n_final equal); export and load wall times. (d)
-             ``rnnt_loss`` and its gradient at B=8, T=200, U=40, V=256 on
-             the card against the CPU (1e-4 relative, 1e-4 of the largest
-             gradient entry), timed forward and backward.
-22. parallel - data and tensor parallelism (``parallel/``) with two gloo
-             ranks pinned to the one card (``parallel/step_check.py``
-             starts them; each counts its own K1 and K1b launches and sends
-             them back): (a) the full-width ConformerCTC(S) (dropout 0,
-             f32, Adam lr 1e-3 at epsilon 1) at a global B=32 x 8 s for 3
-             steps, then ChunkConformer(S) with the calibrated picker, each
-             held to one process on the same 32 rows from the same weights:
-             loss within 1e-4 relative a step, the gradients' global norm
-             as the optimizer computes it after its all-reduce within 1e-3,
-             parameters and BatchNorm statistics identical across ranks;
-             after the first step and after the third, the statistics
-             within 1e-4 of each
-             leaf's largest entry and the parameters within the fixed
-             bounds set from earlier readings (PARALLEL_PARAM_REL: 1e-4 /
-             5e-4 for ConformerCTC(S), 2.5e-4 / 5e-4 for the chunk model),
-             every bias first moved off zero by
-             0.02 x N(0, 1); the chunk batch's halves would take other
-             ``t_ref`` alone, printed; a planted fault (BatchNorm moments
+             leaf`` on the full-width ConformerCTC(S): ``predict_step`` at
+             B=128 x 7 s, 3 train steps at B=32 x 8 s with finite losses,
+             the encoder, loss and gradient norm on the card against the CPU
+             on B=2 x 1 s; K1 and K1b once a call with add_wav_info, never
+             with LEAF. (c) ``export_offline_asr`` of phase 16's calibrated
+             checkpoint and ``export_chunk_streaming`` of its chunk
+             checkpoint, loaded back: the encoder and the picker each hold
+             one ``tasr::log_mel_spectrogram`` node and launch K1 and K1b
+             once a call; encoder, ctc_model and translator at B=1 x 7 s and
+             the picker and decoder over 10 chunks within rtol 1e-4 / atol
+             1e-4 of the eager models. (d) ``rnnt_loss`` and its gradient at
+             B=8, T=200, U=40, V=256 on the card against the CPU.
+22. parallel - two gloo ranks pinned to the one card
+             (``parallel/step_check.py``): (a) ConformerCTC(S) and
+             ChunkConformer(S) at a global B=32 x 8 s for 3 steps against
+             one process on the same rows: loss within 1e-4 relative, the
+             gradients' global norm within 1e-3, ranks identical, BatchNorm
+             statistics within 1e-4 and parameters within
+             PARALLEL_PARAM_REL of each leaf's largest entry after the
+             first step and the third; a planted fault (BatchNorm moments
              over each rank's own rows) must exceed a bound; (b) a (1 x 2)
-             tensor-parallel SGD step of ConformerCTC(S) (4 heads over 2)
-             at B=8 (biases moved off zero), loss within 1e-4, every
-             parameter within 5e-4 of its largest entry in one process (a
-             fixed bound over an earlier reading, TP_PARAM_REL); (c)
-             ``cli.train_asr --device cuda:0 --dist_backend gloo`` under
-             ``torchrun --nproc_per_node 2`` on phase 7's kind of corpus for
-             6 steps with saves, rank 0 alone writing, then a one-process
-             ``cli.eval_am`` restoring the checkpoint; (d) one process at
-             world size 1 on the default backend (NCCL) taking a step equal
-             to the one without a process group. Prints the 2-rank and
-             one-process step times (two ranks share one card: not a
-             scaling figure). A failing rank fails the phase.
-23. headtohead_quick - ``recipes/headtohead.py::quick`` in this process:
-             the seed-21 synthetic Mandarin corpus
-             (``recipes/synthetic_mandarin.py``, 500 / 50 / 100 utterances,
-             12 speakers) and its lists (``recipes/aishell1_prepare.py``),
-             then ``cli.train_asr`` for 2000 steps of the offline model
-             (dmodel 64, 4 blocks, dropout 0.1) at B=16, lr 5e-4, with the
-             noise and masking augmenters, checkpoints every 500 steps, and
-             ``cli.eval_am`` on the test list restoring the last one: the
-             setting of ``bench.py::bench_headtohead_live``. Phone CER must
-             be <= 0.0764 and char CER <= 0.855 (2x and 1.5x JAX's 0.0382
-             and 0.570 at the same setting, fixed constants), and
-             ``eval_am`` on a freshly initialised checkpoint of the same
-             config must miss both. Prints the wall time of the corpus, of
-             training (steps/s) and of eval, the trained parameters' device
-             and the card.
+             tensor-parallel SGD step within 1e-4 / TP_PARAM_REL; (c)
+             ``cli.train_asr`` under ``torchrun --nproc_per_node 2`` then
+             ``cli.eval_am`` restoring; (d) one process at world size 1 on
+             NCCL, a step within 1e-5 of the one without a process group.
+23. headtohead_quick - ``recipes/headtohead.py::quick``: 2000 steps of the
+             offline model (dmodel 64, 4 blocks) on the seed-21 synthetic
+             corpus, then ``cli.eval_am`` on its test list: phone CER <=
+             0.0764 and char CER <= 0.855 (2x and 1.5x JAX's at the same
+             setting), and an untrained checkpoint of the same config must
+             miss both.
 
-K1's and K1b's launch counts are set to 0 just before the ``predict_step``
-calls, the session's 4 requests, each dtype's train steps, the two CLI
-calls, each chunk phase's timed runs (the fused phase's too), the chunk
-CLI call, each dtype's chunk train steps, the three chunk train CLI calls,
-the model server's served window, the VAD and punctuation phase's timed
-sessions and files, the VAD and punctuation training phase (which must
-launch neither), the block-streaming phase's predict, train, CLI and
-session calls, the beam phase's predict calls, ``eval_am --lm``, served
-encodes and train steps, each of the leaf_wav_export phase's predict and
-train windows and loaded-graph calls, the parallel phase's rank,
-one-process and eval_am steps, and the quick run's train steps and both
-evaluations, and read just after each; all but the
-training of VAD and punctuation and the LEAF branch must have launched
-both. K1b counts one launch a
-log-mel (the launch that writes it); K1 counts every launch of the FFT
-kernel, in any epilogue: two a 'same' log-mel (the max pass and the log-mel
-pass), one a 'valid' one. Where a phase knows its number of frontend calls
-it must be exact. The stage breakdowns and the card-vs-CPU checks run
-outside those windows. K1's times at the request and the train shape go on
-``k1_request_shape`` and ``k1_train_shape`` JSON lines in the kernel phase.
-RA's launch count is set to 0 just before each of its calls and each
-predict step of the rel_attention phase, and read just after.
-The last lines are a JSON line of kernel numbers (K1's times at the serve
-shape, with the request, train, cli and the 'valid' shapes beside them, the
-largest error over all shapes and the launches inside loaded exported
-graphs; K1b's the same way; RA's at the 12 s bucket, with the four buckets
-and the predict steps' launches beside them), then ``{"ok":
-true, "device": {...}}``.
-TF32 is off throughout (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32``), so every f32 number is full f32.
+K1's and K1b's launch counts are set to 0 just before each checked call of
+the main path and read just after; where a phase knows its number of
+frontend calls the count must be exact (K1b once a log-mel, and K1 once
+for each, its FFT pass), every phase but VAD and punctuation training and
+the LEAF branch must launch both, and those two must launch neither; RA's
+count is read the same way around each E-Branchformer (L) predict step.
+The line before the last gives each kernel's main-path launches and the
+largest error phase 3 measured (``{"kernels": [...]}``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -365,61 +199,45 @@ import io
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import threading
-import time
-import traceback
-import warnings
 
 import numpy as np
 import torch
 
-from tensorflowasr_tpu_torch.serve.bench_chunk import (
+from tensorflowasr_tpu_torch.testing import (
     CHUNK_S,
     CHUNK_SAMPLES,
-    chunk_models,
-    tones,
-)
-from tensorflowasr_tpu_torch.train.bench_batch import (
+    EBF_BUCKETS,
+    FRAME_SAMPLES,
+    KERNEL_LOGMEL_TOL,
+    MAIN_PATH,
     N_CHAR,
     N_PHONE,
+    POWER_TOL,
     SR,
     TRAIN_B,
     TRAIN_CHARS,
     TRAIN_PHONES,
     TRAIN_SECONDS,
+    chunk_models,
+    chunk_train_batch,
+    ebf_batch,
+    ebf_decode,
+    ebranchformer_l,
+    new_chunk_trainer,
     new_trainer,
+    tones,
     train_batch,
 )
-from tensorflowasr_tpu_torch.train.bench_chunk_batch import (
-    chunk_train_batch,
-    new_chunk_trainer,
-)
-
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 REQUEST_SAMPLES = 7680               # ASREngine's 0.48 s chunk at B = 1
 # the block-streaming encoder folds B = 128 x 7.2 s (15 chunks of 7680
 # samples) into [1920, 7680] before K1b 'same'
 BLOCK_B, BLOCK_CHUNKS = 128, 15
-BLOCK_FOLD = (BLOCK_B * BLOCK_CHUNKS, REQUEST_SAMPLES)
 CLI_B, CLI_BUCKET_SECONDS = 8, (2.0, 4.0)    # the cli phase's batches
-POWER_TOL = dict(rtol=2e-4, atol=2e-3)
-# torch.stft's log-mel against the plain version's (the Pallas kernel's
-# tolerance, for two DFTs that round differently)
-LOGMEL_TOL = dict(rtol=1e-3, atol=5e-2)
-# K1b against its plain version, as tests/test_torch_kernels_cuda.py holds
-# it: 8.0e-5 seen at most, where a bulk 'valid' log-mel of this noise is
-# about 0.02
-KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
-
-
-CARD = "not read yet"    # nvidia-smi's "name, power limit", from phase_device
 
 
 def log(*parts) -> None:
@@ -440,463 +258,30 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float
     return err.max().item()
 
 
-def fmt_times(stats: dict) -> str:
-    return (f"median {stats['median']:.4f} min {stats['min']:.4f} spread "
-            f"{stats['spread']:.4f} ms ({stats['reps']} x {stats['inner']})")
-
-
 def noise(shape, seed: int) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * 0.1
             ).astype(np.float32)
 
 
 def phase_device() -> str:
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from tensorflowasr_tpu_torch.kernels.timing import card_line
+
+    card_line()
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} x {torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    global CARD
-    CARD = smi.splitlines()[0]
-    log(CARD)
     return name
 
 
 def phase_build() -> None:
     from tensorflowasr_tpu_torch.kernels import build
 
-    t0 = time.perf_counter()
     reports = build.build()
-    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)}")
+    log(f"build: {sorted(reports)}")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    log("kernels: K1 power_spectrogram (csrc/power_spectrogram.cu, power "
-        "epilogue) replaces pallas_frontend.py::power_spectrogram_pallas; "
-        "K1b log_mel_spectrogram (the same FFT kernel with log-mel "
-        "epilogues, 'same' as power and row max, then log-mel from the "
-        "power; ops/log_mel_spectrogram.py) replaces "
-        "pallas_frontend.py::log_mel_spectrogram_pallas")
-
-
-def time_k1(padding: str, b: int, t: int, reps: int, graph: bool = False,
-            log_mel: bool = False, replaced: bool = False,
-            given: bool = False) -> dict:
-    """Times of K1, its plain version and ``torch.stft`` on one input, and
-    the bound for that input; with ``graph`` also the kernel replayed from a
-    CUDA graph. With ``log_mel``, K1b instead (log_mel_spectrogram_pallas's
-    counterpart, the fused kernel), its plain version (the plain power, dB
-    and mel matmul) and ``torch.stft`` + ``abs()**2`` + the same dB and
-    matmul, with the bound counted both ways; with ``replaced`` also K1 +
-    the plain dB and mel matmul, the path K1b replaced. With ``given``, K1b
-    with a given (trainable) matrix, the shipped basis plus seeded noise so
-    that no entry is 0: K1 + ``dense_mel_kernel``, the plain version and
-    the library path with that matrix; its banded bound is the dense one."""
-    from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
-    from tensorflowasr_tpu_torch.ops import frontend as fe
-
-    dev = torch.device("cuda")
-    cfg = fe.LogMelFrontendConfig(padding=padding)
-    wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
-    n_fft, n_freq = cfg.n_fft, cfg.n_freq
-    n_frames = -(-t // cfg.hop)
-    lo = fe._left_pad(t, cfg)
-    total = (n_frames - 1) * cfg.hop + n_fft
-    padded = torch.nn.functional.pad(wav, (lo, total - lo - t))
-    window = torch.hann_window(n_fft, periodic=True, device=dev)
-    basis = fe._frontend_constants(cfg)[1]
-    if given:
-        basis = basis + np.random.default_rng(t).uniform(
-            0, 2e-3, basis.shape).astype(np.float32)
-    mel = torch.from_numpy(basis).to(dev)
-    given_kw = {"mel_weights": mel} if given else {}
-
-    def epilogue(power):
-        return torch.matmul(fe._to_db(power, cfg), mel) if log_mel \
-            else power
-
-    def library():
-        spec = torch.stft(padded, n_fft, cfg.hop, window=window,
-                          center=False, return_complex=True)
-        return epilogue((spec.abs() ** 2).transpose(1, 2))
-
-    if log_mel:
-        def kernel_fn():
-            return fe.log_mel_spectrogram(wav, cfg, **given_kw)
-
-        def plain_fn():
-            return fe.log_mel_spectrogram_reference(wav, cfg, **given_kw)
-    else:
-        def kernel_fn():
-            return fe.power_spectrogram(wav, cfg)
-
-        def plain_fn():
-            return fe.power_spectrogram_reference(wav, cfg)
-
-    within(library(), plain_fn(), **(LOGMEL_TOL if log_mel else POWER_TOL))
-    kernel = cuda_times(kernel_fn, reps, 10)
-    plain = cuda_times(plain_fn, max(reps // 5, 5), 2)
-    lib = cuda_times(library, max(reps // 2, 5), 5)
-    replayed = graph_times(kernel_fn, reps, 20) if graph else None
-    old = cuda_times(lambda: epilogue(fe.power_spectrogram(wav, cfg)),
-                     reps, 10) if replaced else None
-    # The bound counts the least work the function needs: per frame the
-    # window product, a real FFT of n_fft points (split radix: 2 n log2 n -
-    # 4 n + 6 FLOP, the fewest known) and re^2 + im^2 per bin; the wav read
-    # once and the power written once. K1b adds the dB (a log, a max and a
-    # scale per bin) and the mel product, and writes the log-mel instead of
-    # the power: counted dense (2 n_freq n_mels a frame) and banded (2 per
-    # nonzero of the basis, what the kernel does), each with its weights
-    # read once.
-    per_frame = (n_fft + 2 * n_fft * math.log2(n_fft) - 4 * n_fft + 6
-                 + 3 * n_freq)
-    n_out = n_freq
-    if log_mel:
-        per_frame += 3 * n_freq
-        n_out = cfg.n_mels
-    frames = b * n_frames
-    nbytes = 4.0 * (b * t + frames * n_out)
-
-    def bound(flops, weight_bytes):
-        by_ops = flops / PEAK_F32_FLOPS
-        by_bytes = (nbytes + weight_bytes) / PEAK_BYTES
-        return {"bound_ms": max(by_ops, by_bytes) * 1e3,
-                "bound_by": "operations" if by_ops > by_bytes else "bytes",
-                "flops": flops, "bytes": nbytes + weight_bytes}
-
-    out = {"kernel": kernel, "kernel_graph": replayed, "plain": plain,
-           "library": lib, "replaced": old}
-    if not log_mel:
-        out.update(bound(frames * per_frame, 0.0))
-        return out
-    nnz = int(np.count_nonzero(basis))
-    out.update(bound(frames * (per_frame + 2 * nnz),
-                     4.0 * (nnz + 3 * cfg.n_mels)))
-    out["dense"] = bound(frames * (per_frame + 2 * n_freq * cfg.n_mels),
-                         4.0 * n_freq * cfg.n_mels)
-    return out
-
-
-def hold_k1(padding: str, b: int, t: int):
-    """K1 and K1b against their plain versions on one seeded input. Returns
-    (max |err| on power, whether K1's launch took 16-byte slab copies, max
-    |err| on log-mel)."""
-    from tensorflowasr_tpu_torch.ops import frontend as fe
-    from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
-
-    dev = torch.device("cuda")
-    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    cfg = fe.LogMelFrontendConfig(padding=padding)
-    wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
-    plan = k1.launch_plan(b, t, cfg.hop, fe._left_pad(t, cfg), sm_count,
-                          base_aligned=wav.data_ptr() % 16 == 0)
-    got = fe.power_spectrogram(wav, cfg)
-    want = fe.power_spectrogram_reference(wav, cfg)
-    torch.cuda.synchronize()
-    err = within(got, want, **POWER_TOL)
-    mel_err = within(fe.log_mel_spectrogram(wav, cfg),
-                     fe.log_mel_spectrogram_reference(wav, cfg),
-                     **KERNEL_LOGMEL_TOL)
-    log(f"kernel: K1 {padding} B={b} T={t} -> {tuple(got.shape)} "
-        f"(tile {plan.tile_frames} frames, {plan.groups * 64} threads, "
-        f"{16 if plan.vec16 else 4}-byte copies): max|err| power "
-        f"{err:.3e}; K1b log-mel {mel_err:.3e}")
-    return err, plan.vec16, mel_err
-
-
-def hold_k1b_backward(padding: str, b: int, t: int) -> float:
-    """K1b with a given mel matrix (K1, then the dense product kernel) and
-    its autograd backward against the plain version's, on one seeded input
-    and cotangent: log-mel within KERNEL_LOGMEL_TOL, the matrix's gradient
-    within 1e-4
-    of its largest entry. Returns the gradient's max |err|."""
-    from tensorflowasr_tpu_torch.ops import frontend as fe
-
-    dev = torch.device("cuda")
-    cfg = fe.LogMelFrontendConfig(padding=padding)
-    wav = torch.from_numpy(noise((b, t), seed=t + 1)).to(dev)
-    fb = fe._frontend_constants(cfg)[1]
-    w0 = torch.from_numpy(fb + np.random.default_rng(t).uniform(
-        0, 2e-3, fb.shape).astype(np.float32)).to(dev)
-    cot = torch.from_numpy(noise((b, -(-t // cfg.hop), cfg.n_mels),
-                                 seed=t + 2)).to(dev)
-    results = []
-    for fn in (fe.log_mel_spectrogram, fe.log_mel_spectrogram_reference):
-        w = w0.clone().requires_grad_()
-        out = fn(wav, cfg, mel_weights=w)
-        (out * cot).sum().backward()
-        results.append((out.detach(), w.grad))
-    torch.cuda.synchronize()
-    (got, got_grad), (want, want_grad) = results
-    err = within(got, want, **KERNEL_LOGMEL_TOL)
-    scale = float(want_grad.abs().max())
-    grad_err = within(got_grad, want_grad, rtol=0, atol=1e-4 * scale)
-    log(f"kernel: K1b {padding} B={b} T={t} with a given [513, 80] matrix: "
-        f"max|err| log-mel {err:.3e}; its backward, gradient max|err| "
-        f"{grad_err:.3e} (largest entry {scale:.3e})")
-    return grad_err
-
-
-def k1_numbers(batch: int, samples: int, times: dict) -> dict:
-    """The kernels line's numbers for one shape timed by ``time_k1``: for
-    K1b also the dense bound, and where they were taken the graph replay
-    and the replaced path's time."""
-    out = {"batch": batch, "samples": samples,
-           "ms": times["kernel"]["median"],
-           "plain_ms": times["plain"]["median"],
-           "library_ms": times["library"]["median"],
-           "bound_ms": times["bound_ms"], "bound_by": times["bound_by"]}
-    if "dense" in times:
-        out.update(dense_bound_ms=times["dense"]["bound_ms"],
-                   dense_bound_by=times["dense"]["bound_by"])
-    if times["kernel_graph"] is not None:
-        out["graph_ms"] = times["kernel_graph"]["median"]
-    if times["replaced"] is not None:
-        out["replaced_ms"] = times["replaced"]["median"]
-    return out
-
-
-def log_k1b(phase: str, what: str, times: dict) -> None:
-    """One line of K1b's times at a shape, beside its bounds."""
-    replay = "" if times["kernel_graph"] is None else (
-        f"; replayed from a CUDA graph {fmt_times(times['kernel_graph'])}")
-    replaced = "" if times["replaced"] is None else (
-        f"; K1 + plain dB + mel (the path it replaced) "
-        f"{fmt_times(times['replaced'])}")
-    dense = times["dense"]
-    log(f"{phase}: K1b log-mel {what}: kernel {fmt_times(times['kernel'])}"
-        f"{replay}{replaced}; plain {fmt_times(times['plain'])}; library "
-        f"(torch.stft + abs()**2 + dB + mel) {fmt_times(times['library'])}; "
-        f"bound banded {times['bound_ms']:.6f} ms by {times['bound_by']} "
-        f"({times['flops']:.4e} FLOP, {times['bytes']:.4e} B), dense "
-        f"{dense['bound_ms']:.6f} ms by {dense['bound_by']} "
-        f"({dense['flops']:.4e} FLOP)")
-
-
-def phase_kernel() -> dict:
-    # 'same' batched and the one-chunk request take 16-byte slab copies;
-    # 'valid' (left pad 1023) and the ragged row stride take 4-byte ones.
-    # Then the shapes the later phases give K1: the train batch, the cli
-    # phase's two buckets, the card-against-CPU batch
-    shapes = (("same", 128, 7 * SR), ("valid", 16, 2560 * 3),
-              ("same", 3, 2 * SR + 77), ("same", 1, REQUEST_SAMPLES),
-              ("same", TRAIN_B, TRAIN_SECONDS * SR),
-              *(("same", CLI_B, int(s * SR)) for s in CLI_BUCKET_SECONDS),
-              ("same", 2, SR), ("same", *BLOCK_FOLD))
-    result, copies = {"max_abs_err": 0.0, "log_mel_max_abs_err": 0.0}, set()
-    for padding, b, t in shapes:
-        err, vec16, mel_err = hold_k1(padding, b, t)
-        copies.add(vec16)
-        result["max_abs_err"] = max(result["max_abs_err"], err)
-        result["log_mel_max_abs_err"] = max(result["log_mel_max_abs_err"],
-                                            mel_err)
-    if copies != {True, False}:
-        raise AssertionError("the shapes did not cover both copy paths")
-    for padding in ("same", "valid"):
-        hold_k1b_backward(padding, CLI_B, int(CLI_BUCKET_SECONDS[0] * SR))
-
-    # the serving shape: 57 MB of wav in, 184 MB of power out, more than the
-    # 50 MB L2, so back-to-back launches find their inputs in device memory
-    batched = time_k1("same", 128, 7 * SR, reps=50)
-    # K1b at that shape (57 MB in, 29 MB out), beside the path it replaced
-    # (K1 + the plain dB + mel matmul), the plain version and torch.stft
-    # with the same dB and mel
-    k1b = time_k1("same", 128, 7 * SR, reps=50, log_mel=True, replaced=True)
-    log_k1b("kernel", f"same B=128 T={7 * SR} (serve)", k1b)
-    # a given (trainable) [513, 80] matrix at that shape, both paddings
-    given = {}
-    for padding in ("same", "valid"):
-        times = time_k1(padding, 128, 7 * SR, reps=50, log_mel=True,
-                        given=True)
-        log_k1b("kernel", f"{padding} B=128 T={7 * SR} with a given [513, "
-                f"80] matrix (K1 + dense_mel_kernel)", times)
-        given[padding] = {"ms": times["kernel"]["median"],
-                          "plain_ms": times["plain"]["median"],
-                          "library_ms": times["library"]["median"],
-                          "dense_bound_ms": times["dense"]["bound_ms"],
-                          "dense_bound_by": times["dense"]["bound_by"]}
-    k1b_train = time_k1("same", TRAIN_B, TRAIN_SECONDS * SR, reps=50,
-                        log_mel=True)
-    log_k1b("kernel", f"same B={TRAIN_B} T={TRAIN_SECONDS * SR} (train)",
-            k1b_train)
-    # the block-streaming predict_step's fold: 59 MB in, 31 MB out
-    k1b_block = time_k1("same", *BLOCK_FOLD, reps=50, log_mel=True)
-    log_k1b("kernel", f"same B={BLOCK_FOLD[0]} T={BLOCK_FOLD[1]} (block "
-            f"streaming: B={BLOCK_B} x {BLOCK_CHUNKS} chunks folded) "
-            f"[{CARD}]", k1b_block)
-    k1b_request = time_k1("same", 1, REQUEST_SAMPLES, reps=50, graph=True,
-                          log_mel=True)
-    log_k1b("kernel", f"same B=1 T={REQUEST_SAMPLES} (request, L2-warm)",
-            k1b_request)
-    log(f"kernel: K1 same B=128 T={7 * SR} (inputs and outputs exceed the "
-        f"L2): kernel {fmt_times(batched['kernel'])}; plain "
-        f"{fmt_times(batched['plain'])}; library (torch.stft + abs()**2) "
-        f"{fmt_times(batched['library'])}; bound_ms "
-        f"{batched['bound_ms']:.4f} by {batched['bound_by']} "
-        f"({batched['flops']:.4e} FFT FLOP, {batched['bytes']:.4e} B)")
-
-    # one request chunk: 30 KB in, 98 KB out, all of it L2-resident, so
-    # these are L2-warm times; event times of such short kernels hold the
-    # host's enqueue rate, the graph replay is the device's own time
-    request = time_k1("same", 1, REQUEST_SAMPLES, reps=50, graph=True)
-    log(f"kernel: K1 same B=1 T={REQUEST_SAMPLES} (L2-warm): kernel "
-        f"{fmt_times(request['kernel'])}; kernel replayed from a CUDA graph "
-        f"{fmt_times(request['kernel_graph'])}; plain "
-        f"{fmt_times(request['plain'])}; library (torch.stft + abs()**2) "
-        f"{fmt_times(request['library'])}; bound_ms "
-        f"{request['bound_ms']:.6f} by {request['bound_by']} "
-        f"({request['flops']:.4e} FFT FLOP, {request['bytes']:.4e} B)")
-    # the train batch: 66 MB in, 210 MB out
-    train = time_k1("same", TRAIN_B, TRAIN_SECONDS * SR, reps=50)
-    log(f"kernel: K1 same B={TRAIN_B} T={TRAIN_SECONDS * SR} (the train "
-        f"batch): kernel {fmt_times(train['kernel'])}; plain "
-        f"{fmt_times(train['plain'])}; library (torch.stft + abs()**2) "
-        f"{fmt_times(train['library'])}; bound_ms {train['bound_ms']:.4f} "
-        f"by {train['bound_by']} ({train['flops']:.4e} FFT FLOP, "
-        f"{train['bytes']:.4e} B)")
-
-    # the cli phase's buckets: 1-2 MB in, small enough that events time the
-    # host, so the graph replay is the device's time
-    result["cli_shapes"] = []
-    for seconds in CLI_BUCKET_SECONDS:
-        t = int(seconds * SR)
-        times = time_k1("same", CLI_B, t, reps=20, graph=True)
-        result["cli_shapes"].append(k1_numbers(CLI_B, t, times))
-        log(f"kernel: K1 same B={CLI_B} T={t} (a cli bucket): kernel "
-            f"{fmt_times(times['kernel'])}; kernel replayed from a CUDA "
-            f"graph {fmt_times(times['kernel_graph'])}; plain "
-            f"{fmt_times(times['plain'])}; library (torch.stft + abs()**2) "
-            f"{fmt_times(times['library'])}; bound_ms "
-            f"{times['bound_ms']:.6f} by {times['bound_by']} "
-            f"({times['bytes']:.4e} B)")
-    result["train_shape"] = k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, train)
-    result["log_mel"] = {
-        "given_matrix": given,
-        "serve": k1_numbers(128, 7 * SR, k1b),
-        "train": k1_numbers(TRAIN_B, TRAIN_SECONDS * SR, k1b_train),
-        "request": k1_numbers(1, REQUEST_SAMPLES, k1b_request),
-        "block_stream": k1_numbers(*BLOCK_FOLD, k1b_block)}
-    result["request_shape"] = k1_numbers(1, REQUEST_SAMPLES, request)
-    log(json.dumps({"k1_request_shape": result["request_shape"]}))
-    log(json.dumps({"k1_train_shape": result["train_shape"]}))
-    result.update(k1_numbers(128, 7 * SR, batched))
-    return result
-
-
-def phase_rel_attention() -> dict:
-    """RA at the decode buckets, then its launches in the full-width
-    E-Branchformer (L)'s predict step; returns its entry of the kernels
-    line (the 12 s bucket's numbers, the four buckets beside them)."""
-    import torch.nn.functional as F
-
-    from tensorflowasr_tpu_torch.kernels import sweep_rel_attention as sweep
-    from tensorflowasr_tpu_torch.kernels.timing import cuda_times
-    from tensorflowasr_tpu_torch.ops import rel_attention as ra
-    from tensorflowasr_tpu_torch.serve import bench_ebf_buckets as ebf
-
-    buckets, worst = {}, 0.0
-    for t in sweep.LENGTHS:
-        q, k, v, bd, u, mask, _ = sweep.inputs(t, seed=t)
-        b, _, d = q.shape
-        h, hd = u.shape
-        want = ra.rel_attention_reference(
-            *(x.float() for x in (q, k, v, bd)), u, mask)
-        plain = ra.rel_attention_reference(q, k, v, bd, u, mask)
-        ra.rel_attention_cuda.launches = 0
-        got = ra.rel_attention(q, k, v, bd, u, mask)
-        torch.cuda.synchronize()
-        if ra.rel_attention_cuda.launches != 1:
-            raise AssertionError(f"RA at T'={t} launched "
-                                 f"{ra.rel_attention_cuda.launches} times")
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"RA at T'={t}: non-finite values")
-        err = float((got.float() - want).abs().max())
-        err_plain = float((plain.float() - want).abs().max())
-        if err > 1.5 * err_plain:
-            raise AssertionError(
-                f"RA at T'={t}: largest error {err:.3e} above 1.5x the "
-                f"bf16 plain composition's {err_plain:.3e}")
-        worst = max(worst, err)
-
-        def heads(x):
-            return x.view(b, t, h, hd).transpose(1, 2)
-
-        qu, kh, vh = heads(q) + u[:, None].to(q.dtype), heads(k), heads(v)
-        bias = (ra.rel_shift(bd).float() / math.sqrt(hd)).masked_fill(
-            ~mask, float("-inf")).to(q.dtype)
-
-        def library():
-            return F.scaled_dot_product_attention(qu, kh, vh,
-                                                  attn_mask=bias)
-
-        lib_err = float((library().transpose(1, 2).reshape(b, t, d).float()
-                         - want).abs().max())
-        times = {
-            "kernel": cuda_times(
-                lambda: ra.rel_attention(q, k, v, bd, u, mask), 20, 10),
-            "plain": cuda_times(lambda: ra.rel_attention_reference(
-                q, k, v, bd, u, mask), 10, 2),
-            "library": cuda_times(library, 20, 10)}
-        work = sweep.bound(q, bd)
-        log(f"rel_attention: B={b}, {h} x {hd} heads, T'={t}: largest "
-            f"error {err:.3e} (bf16 plain {err_plain:.3e}, library "
-            f"{lib_err:.3e}) of entries up to {float(want.abs().max()):.3f};"
-            f" kernel {fmt_times(times['kernel'])}; plain "
-            f"{fmt_times(times['plain'])}; library "
-            f"{fmt_times(times['library'])}; bound_ms "
-            f"{work['bound_ms']:.4f} by {work['bound_by']} "
-            f"({work['whole_ms']:.4f} with bd whole)")
-        buckets[t] = {"ms": times["kernel"]["median"],
-                      "plain_ms": times["plain"]["median"],
-                      "library_ms": times["library"]["median"],
-                      "bound_ms": work["bound_ms"],
-                      "bound_by": work["bound_by"],
-                      "bd_whole_bound_ms": work["whole_ms"],
-                      "max_abs_err": err,
-                      "plain_bf16_max_abs_err": err_plain,
-                      "library_max_abs_err": lib_err}
-        del q, k, v, bd, want, plain, got, qu, kh, vh, bias
-        torch.cuda.empty_cache()
-
-    model = ebf.model()
-    blocks = len(model.encoder.blocks)
-    launches = {}
-    for seconds in ebf.BUCKETS:
-        wav, lengths = ebf.batch(seconds, seed=seconds)
-        ebf.decode(model, wav, lengths)             # warm
-        ra.rel_attention_cuda.launches = 0
-        ebf.decode(model, wav, lengths)
-        launches[seconds] = ra.rel_attention_cuda.launches
-        if launches[seconds] != blocks:
-            raise AssertionError(
-                f"the {seconds} s predict step launched RA "
-                f"{launches[seconds]} times, not once a block ({blocks})")
-    log(f"rel_attention: E-Branchformer (L) predict_step, B={ebf.B}: RA "
-        f"launches a batch at " + ", ".join(
-            f"{s} s {n}" for s, n in launches.items()))
-    del model
-    torch.cuda.empty_cache()
-    return {
-        "name": "rel_attention", "route": "triton",
-        "source": "tensorflowasr_tpu_torch/ops/rel_attention.py",
-        # the JAX package has no E-Branchformer
-        "replaces": None,
-        "launches": sum(launches.values()), "launches_per_batch": blocks,
-        "max_abs_err": worst,
-        # the numbers above are the 12 s bucket's: B=32, 8 x 64, T'=300
-        **{key: buckets[300][key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "batch": sweep.B, "heads": sweep.H, "head_size": sweep.HD,
-        "frames": 300,
-        "buckets": buckets,
-    }
 
 
 def batch_inputs(b: int, seconds: float, dev):
@@ -947,45 +332,164 @@ def add(a: tuple, b: tuple) -> tuple:
     return tuple(x + y for x, y in zip(a, b))
 
 
-def stage_breakdown(model, wav, length) -> dict:
-    """CUDA-event times of one predict_step's stages, in ms."""
-    from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
+def phase_kernel() -> dict:
+    """K1 and K1b against their plain versions on card tensors at every
+    shape of ``MAIN_PATH`` and the request chunk, in both paddings; K1b
+    with a given mel matrix and its backward at the CLI buckets; RA at the
+    decode buckets. Returns each kernel's largest error."""
+    from tensorflowasr_tpu_torch.kernels import sweep_rel_attention as sweep
+    from tensorflowasr_tpu_torch.ops import frontend as fe
+    from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
+    from tensorflowasr_tpu_torch.ops import rel_attention as ra
 
-    enc_mod = model.encoder
-    marks = []
+    dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst = {"k1": 0.0, "k1b": 0.0, "k1b_grad": 0.0, "ra": 0.0}
+    copies = set()
+    shapes = [*MAIN_PATH, (1, REQUEST_SAMPLES)]
+    for b, t in shapes:
+        wav = torch.from_numpy(noise((b, t), seed=t)).to(dev)
+        errs = []
+        for padding in ("same", "valid"):
+            cfg = fe.LogMelFrontendConfig(padding=padding)
+            copies.add(k1.launch_plan(
+                b, t, cfg.hop, fe._left_pad(t, cfg), sm_count,
+                base_aligned=wav.data_ptr() % 16 == 0).vec16)
+            (power, mel), n = counted(lambda: (
+                fe.power_spectrogram(wav, cfg),
+                fe.log_mel_spectrogram(wav, cfg)))
+            # K1 once for the power and once as K1b's FFT pass
+            if n != (2, 1):
+                raise AssertionError(f"K1 and K1b {padding} B={b} T={t} "
+                                     f"launched {n} times, not (2, 1)")
+            errs.append(within(power, fe.power_spectrogram_reference(
+                wav, cfg), **POWER_TOL))
+            errs.append(within(mel, fe.log_mel_spectrogram_reference(
+                wav, cfg), **KERNEL_LOGMEL_TOL))
+        worst["k1"] = max(worst["k1"], errs[0], errs[2])
+        worst["k1b"] = max(worst["k1b"], errs[1], errs[3])
+        log(f"kernel: B={b} T={t}: max|err| K1 same {errs[0]:.3e} valid "
+            f"{errs[2]:.3e}; K1b same {errs[1]:.3e} valid {errs[3]:.3e}")
+        del wav, power, mel
+    if copies != {True, False}:
+        raise AssertionError("the shapes did not cover both copy paths")
 
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
+    # a given (trainable) mel matrix: K1, then the dense product kernel,
+    # and its backward; the gradient within 1e-4 of its largest entry
+    for seconds in CLI_BUCKET_SECONDS:
+        t = int(seconds * SR)
+        wav = torch.from_numpy(noise((CLI_B, t), seed=t + 1)).to(dev)
+        for padding in ("same", "valid"):
+            cfg = fe.LogMelFrontendConfig(padding=padding)
+            fb = fe._frontend_constants(cfg)[1]
+            w0 = torch.from_numpy(fb + np.random.default_rng(t).uniform(
+                0, 2e-3, fb.shape).astype(np.float32)).to(dev)
+            cot = torch.from_numpy(noise((CLI_B, -(-t // cfg.hop),
+                                          cfg.n_mels), seed=t + 2)).to(dev)
+            results = []
+            for fn in (fe.log_mel_spectrogram,
+                       fe.log_mel_spectrogram_reference):
+                w = w0.clone().requires_grad_()
+                out = fn(wav, cfg, mel_weights=w)
+                (out * cot).sum().backward()
+                results.append((out.detach(), w.grad))
+            (got, got_grad), (want, want_grad) = results
+            err = within(got, want, **KERNEL_LOGMEL_TOL)
+            scale = float(want_grad.abs().max())
+            grad_err = within(got_grad, want_grad, rtol=0, atol=1e-4 * scale)
+            worst["k1b"] = max(worst["k1b"], err)
+            worst["k1b_grad"] = max(worst["k1b_grad"], grad_err / scale)
+            log(f"kernel: K1b {padding} B={CLI_B} T={t} with a given [513, "
+                f"80] matrix: max|err| {err:.3e}; its gradient {grad_err:.3e}"
+                f" (largest entry {scale:.3e})")
 
-    c = model.cfg
-    with torch.no_grad():
-        mark("start")
-        # the block-streaming encoder folds the chunks into the batch first
-        mel = enc_mod.mel_layer(wav.reshape(-1, c.chunk_samples)
-                                if c.streaming else wav)
-        mark("frontend (K1b: FFT, dB and banded mel in one kernel)")
-        x = enc_mod.conv_subsampling(mel[..., None])
-        mark("conv subsampling")
-        for block in enc_mod.blocks:
-            x = block(x)
-        enc = x.float().reshape(wav.shape[0], -1, c.dmodel)
-        mark(f"{len(enc_mod.blocks)} conformer blocks")
-        ids, _ = ctc_greedy_decode(model.ctc_logits(enc), length,
-                                   model.num_phone_classes - 1)
-        mark("CTC head + greedy")
-        padded = torch.nn.functional.pad(ids, (0, 10))
-        torch.argmax(model.translate(padded, enc), -1)
-        mark("translator")
-    torch.cuda.synchronize()
-    return {name: round(prev.elapsed_time(ev), 4)
-            for (_, prev), (name, ev) in zip(marks, marks[1:])}
+    # RA: one launch a call; against the plain composition in f32 on the
+    # same bf16 inputs, at most 1.5x the bf16 plain composition's error
+    for t in sweep.LENGTHS:
+        q, k, v, bd, u, mask, _ = sweep.inputs(t, seed=t)
+        want = ra.rel_attention_reference(
+            *(x.float() for x in (q, k, v, bd)), u, mask)
+        plain = ra.rel_attention_reference(q, k, v, bd, u, mask)
+        ra.rel_attention_cuda.launches = 0
+        got = ra.rel_attention(q, k, v, bd, u, mask)
+        torch.cuda.synchronize()
+        if ra.rel_attention_cuda.launches != 1:
+            raise AssertionError(f"RA at T'={t} launched "
+                                 f"{ra.rel_attention_cuda.launches} times")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"RA at T'={t}: non-finite values")
+        err = float((got.float() - want).abs().max())
+        err_plain = float((plain.float() - want).abs().max())
+        if err > 1.5 * err_plain:
+            raise AssertionError(
+                f"RA at T'={t}: largest error {err:.3e} above 1.5x the "
+                f"bf16 plain composition's {err_plain:.3e}")
+        worst["ra"] = max(worst["ra"], err)
+        log(f"kernel: RA B={q.shape[0]} T'={t}: largest error {err:.3e} "
+            f"(bf16 plain {err_plain:.3e})")
+        del q, k, v, bd, want, plain, got
+    torch.cuda.empty_cache()
+    return worst
 
 
-def phase_serve(seconds: float = 7.0, b: int = 128, reps: int = 5):
+def phase_ebranchformer() -> tuple:
+    """The full-width bf16 E-Branchformer (L)'s predict step at each
+    decode bucket: RA once a block, K1 and K1b once a call, ids in range.
+    Returns (K1's and K1b's launches, RA's launches)."""
+    from tensorflowasr_tpu_torch.ops import rel_attention as ra
+
+    model = ebranchformer_l()
+    blocks = len(model.encoder.blocks)
+    launches, ra_launches = (0, 0), 0
+    for seconds in EBF_BUCKETS:
+        wav, lengths = ebf_batch(seconds, seed=seconds)
+        ebf_decode(model, wav, lengths)      # builds RA at its first call
+        ra.rel_attention_cuda.launches = 0
+        (phone_ids, phone_lens, char_ids), n = counted(
+            lambda: ebf_decode(model, wav, lengths))
+        if ra.rel_attention_cuda.launches != blocks or blocks != 17:
+            raise AssertionError(
+                f"the {seconds} s predict step launched RA "
+                f"{ra.rel_attention_cuda.launches} times, not once in each "
+                f"of the 17 blocks ({blocks})")
+        ra_launches += blocks
+        launches = add(launches, expect(n, 1, f"the {seconds} s predict "
+                                              f"step"))
+        t_enc = seconds * SR // FRAME_SAMPLES
+        if phone_ids.shape[0] != wav.shape[0] or not (
+                0 <= int(phone_lens.min()) and int(phone_lens.max()) <= t_enc
+                and 0 <= int(phone_ids.min()) and int(phone_ids.max())
+                < N_PHONE and 0 <= int(char_ids.min())
+                and int(char_ids.max()) < N_CHAR):
+            raise AssertionError(f"the {seconds} s predict step: ids or "
+                                 f"lengths out of range")
+    log(f"ebranchformer: predict_step at {list(EBF_BUCKETS)} s, B="
+        f"{wav.shape[0]}: RA {blocks} launches a batch, K1 and K1b "
+        f"{launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, ra_launches
+
+
+def run_cli(main_fn, args: list) -> tuple:
+    """``main_fn(args)`` with its stdout and stderr captured; raises unless
+    it returns 0. Returns (the last stdout line as JSON or None, stdout,
+    stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(args)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__}: rc {rc}, stderr "
+                             f"{err.getvalue()[-400:]}")
+    lines = out.getvalue().strip().splitlines()
+    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
+        else None
+    return last, out.getvalue(), err.getvalue()
+
+
+def phase_serve(seconds: float = 7.0, b: int = 128):
     """Returns the models by dtype and K1's and K1b's launches in the
-    predict_step calls alone."""
+    predict_step calls."""
     from tensorflowasr_tpu_torch.models.conformer import (
         ConformerConfig,
         build_model,
@@ -1001,30 +505,11 @@ def phase_serve(seconds: float = 7.0, b: int = 128, reps: int = 5):
         cfg = ConformerConfig(dtype_str=dtype)
         model = build_model(cfg, N_PHONE, N_CHAR, device="cuda", seed=0)
         models[dtype] = model
-
-        def predict():
-            out = predict_step(model, wav, length)
-            torch.cuda.synchronize()
-            check_outputs(out, b, t_enc)
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                out = predict_step(model, wav, length)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            check_outputs(out, b, t_enc)
-            return times
-
-        times, n = counted(predict)
-        launches = add(launches, expect(n, reps + 1,
-                                        f"{reps + 1} predict_step calls"))
-        step = statistics.median(times)
-        log(f"serve: predict_step {dtype} B={b} x {seconds} s: median "
-            f"{step * 1e3:.3f} ms (min {min(times) * 1e3:.3f}), per-stream "
-            f"RTF {step / (b * seconds):.3e}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        log(f"serve: {dtype} stages (ms): "
-            f"{json.dumps(stage_breakdown(model, wav, length))}")
+        out, n = counted(lambda: predict_step(model, wav, length))
+        check_outputs(out, b, t_enc)
+        launches = add(launches, expect(n, 1, f"a {dtype} predict_step"))
+    log(f"serve: predict_step f32 and bf16 B={b} x {seconds} s: shapes and "
+        f"ids in range, K1 and K1b once a call")
 
     # the f32 path on the card against the same model on the CPU (plain
     # frontend, CPU kernels) on a small input
@@ -1066,46 +551,22 @@ def phase_requests(model) -> tuple:
 
     def requests():
         for i, seconds in enumerate((2.0, 3.5, 5.0, 8.0)):
-            wav = noise(int(seconds * SR), seed=10 + i)
-            t0 = time.perf_counter()
-            segments = session.transcribe_wav(wav)
-            latency = time.perf_counter() - t0
+            segments = session.transcribe_wav(
+                noise(int(seconds * SR), seed=10 + i))
             if not (isinstance(segments, list) and len(segments) == 1
                     and abs(segments[0]["end_s"] - seconds) < 1e-6
                     and isinstance(segments[0]["text"], str)):
                 raise AssertionError(f"request {i}: bad segments {segments}")
-            log(f"request: {seconds} s -> {len(segments)} segment(s), "
-                f"{len(segments[0]['text'])} text chars, latency "
-                f"{latency * 1e3:.3f} ms (RTF {latency / seconds:.3e})")
+        log("request: 4 requests of 2, 3.5, 5 and 8 s, one segment each")
 
     return counted(requests)[1]
 
 
-def train_stage_split(trainer, batch) -> dict:
-    """CUDA-event times of one more ``train_step``'s stages, in ms."""
-    from tensorflowasr_tpu_torch.train.asr_trainer import make_train_step
-
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    step = make_train_step(trainer.blank_id, mark=mark)
-    mark("start")
-    step(trainer.state, batch)
-    torch.cuda.synchronize()
-    return {name: round(prev.elapsed_time(ev), 4)
-            for (_, prev), (name, ev) in zip(marks, marks[1:])}
-
-
 def phase_train(steps: int = 10) -> tuple:
-    """Returns K1's and K1b's launches in the ``train_step`` calls
-    alone."""
+    """A warm ``train_step`` and ``steps`` more in bf16 and in f32. Returns
+    K1's and K1b's launches in the ``train_step`` calls alone."""
     numpy_batch = train_batch(TRAIN_B, TRAIN_SECONDS, TRAIN_PHONES,
                               TRAIN_CHARS)
-    audio_s = TRAIN_B * TRAIN_SECONDS
     launches = (0, 0)
     for dtype in ("bfloat16", "float32"):
         trainer = new_trainer(dtype, "cuda")
@@ -1115,32 +576,15 @@ def phase_train(steps: int = 10) -> tuple:
         state = trainer.state
         batch = trainer._prepare_batch(numpy_batch)
         before = {k: v.clone() for k, v in state.model.named_buffers()}
-        torch.cuda.reset_peak_memory_stats()
-        losses, times = [], []
 
         def run():
-            _, m = trainer.train_step(state, batch)             # warm
-            torch.cuda.synchronize()
-            losses.append(m["train_loss"])
-            for _ in range(steps):
-                t0 = time.perf_counter()
-                _, m = trainer.train_step(state, batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                losses.append(m["train_loss"])
-            # and as the fit loop runs them: enqueued back to back, the
-            # host waits once at the end
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, m = trainer.train_step(state, batch)
-                losses.append(m["train_loss"])
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / steps
+            return [trainer.train_step(state, batch)[1]["train_loss"]
+                    for _ in range(steps + 1)]
 
-        pipelined, n = counted(run)
-        if state.step != 2 * steps + 1:
+        losses, n = counted(run)
+        if state.step != steps + 1:
             raise AssertionError(f"{state.step} train steps, not "
-                                 f"{2 * steps + 1}")
+                                 f"{steps + 1}")
         launches = add(launches, expect(n, state.step,
                                         f"{state.step} train steps"))
         values = [float(v) for v in torch.stack(losses).cpu()]
@@ -1153,23 +597,10 @@ def phase_train(steps: int = 10) -> tuple:
         if len(moved) != len(before):
             raise AssertionError("BatchNorm running statistics that did not "
                                  f"move: {sorted(set(before) - set(moved))}")
-        step = statistics.median(times)
-        log(f"train: train_step {dtype} B={TRAIN_B} x {TRAIN_SECONDS} s, "
-            f"{TRAIN_PHONES} phones, {TRAIN_CHARS} chars: median "
-            f"{step * 1e3:.3f} ms (min {min(times) * 1e3:.3f}, max "
-            f"{max(times) * 1e3:.3f}; {steps} steps, each waited for), "
-            f"{audio_s / step:.1f} audio s/s; {steps} steps back to back "
-            f"{pipelined * 1e3:.3f} ms a step, {audio_s / pipelined:.1f} "
-            f"audio s/s; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        log(f"train: {dtype} train_loss first {values[0]:.4f}, after "
-            f"{steps} steps {values[steps]:.4f}, last {values[-1]:.4f}; "
+        log(f"train: {dtype} train_step B={TRAIN_B} x {TRAIN_SECONDS} s, "
+            f"{TRAIN_PHONES} phones, {TRAIN_CHARS} chars: train_loss first "
+            f"{values[0]:.4f}, last {values[-1]:.4f} after {steps} steps; "
             f"{len(moved)} BatchNorm buffers moved")
-        # only where the card is the limit: the bf16 step's host runs
-        # behind the card, so its marks would time the host's enqueueing
-        if dtype == "float32":
-            log(f"train: {dtype} stages (ms): "
-                f"{json.dumps(train_stage_split(trainer, batch))}")
         del trainer, state, batch, before
         torch.cuda.empty_cache()
     return launches
@@ -1299,30 +730,21 @@ def phase_cli(tmp: str) -> tuple:
               "--device", "cuda", "--data_workers", "2"]
 
     def run():
-        t0 = time.perf_counter()
         if train_asr.main(common + ["--total_steps", "6"]) != 0:
             raise AssertionError("cli.train_asr failed")
-        t_train = time.perf_counter() - t0
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(err):
-            rc = eval_am.main(common + ["--max_batches", "2"])
-        return rc, out.getvalue(), err.getvalue(), t_train, \
-            time.perf_counter() - t0
+        return run_cli(eval_am.main, common + ["--max_batches", "2"])
 
-    (rc, out, err, t_train, t_eval), launches = counted(run)
+    (result, _, err), launches = counted(run)
     ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
     with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
-    if rc != 0 or "no checkpoint found" in err:
-        raise AssertionError(f"cli.eval_am: rc {rc}, stderr {err[-400:]}")
+    if "no checkpoint found" in err:
+        raise AssertionError(f"cli.eval_am: stderr {err[-400:]}")
     if ckpts != ["ckpt_000000003.pt", "ckpt_000000006.pt"]:
         raise AssertionError(f"checkpoints {ckpts}")
     if [m["step"] for m in logged] != [2, 4, 6] or not all(
             math.isfinite(m["train_loss"]) for m in logged):
         raise AssertionError(f"metrics.jsonl {logged}")
-    result = json.loads(out.strip().splitlines()[-1])
     for key in ("phone_cer", "phone_ser", "char_cer", "char_ser"):
         if not math.isfinite(result[key]):
             raise AssertionError(f"eval_am: {key} = {result[key]}")
@@ -1330,11 +752,10 @@ def phase_cli(tmp: str) -> tuple:
         raise AssertionError(f"eval_am scored nothing: {result}")
     # 6 train steps, and 2 eval batches through predict_step
     expect(launches, 8, "the train_asr and eval_am calls")
-    log(f"cli: train_asr bf16, 6 steps of B=8 in {t_train:.2f} s "
-        f"(train_loss {logged[0]['train_loss']:.3f} -> "
-        f"{logged[-1]['train_loss']:.3f}), checkpoints {ckpts}; eval_am "
-        f"restored step 6 and scored 2 batches in {t_eval:.2f} s: "
-        f"{json.dumps(result)}")
+    log(f"cli: train_asr bf16, 6 steps of B=8 (train_loss "
+        f"{logged[0]['train_loss']:.3f} -> {logged[-1]['train_loss']:.3f}), "
+        f"checkpoints {ckpts}; eval_am restored step 6 and scored 2 "
+        f"batches: {json.dumps(result)}")
     return launches
 
 
@@ -1342,26 +763,15 @@ def phase_cli(tmp: str) -> tuple:
 # Chunk streaming (SMLTA2): ChunkConformer(S) from configs/chunk_conformerS.yml
 # ---------------------------------------------------------------------------
 
-POOL_SLOTS, POOL_TICKS, POOL_REPS = 256, 25, 10      # bench.py:239-286
+POOL_SLOTS, POOL_TICKS = 256, 25                 # bench.py:239-286
 OFFLINE_B, OFFLINE_SECONDS = 128, 7
-STREAM_CHUNKS, STREAM_REPS = 50, 3   # bench.py:175-203: 50 chained chunks
+STREAM_CHUNKS = 50                   # bench.py:175-203: 50 chained chunks
 CLI_CHUNKS = 50                      # the chunk CLI's wav: 8 s, 50 chunks
-# K1's 'valid' shapes on the chunk path: the stream step's and the pool
-# tick's mel of [wav tail | chunk], the offline batch, and the chunk CLI's
-# offline decode of its one wav
-CHUNK_K1_SHAPES = {"stream": (1, 2 * CHUNK_SAMPLES),
-                   "pool": (POOL_SLOTS, 2 * CHUNK_SAMPLES),
-                   "offline": (OFFLINE_B, OFFLINE_SECONDS * SR),
-                   "cli": (1, CLI_CHUNKS * CHUNK_SAMPLES),
-                   "chunk_train": (TRAIN_B, TRAIN_SECONDS * SR)}
-# the chunk train CLI's buckets: the cli phase's, rounded up to whole chunks
-CHUNK_CLI_SHAPES = [(CLI_B, -(-int(s * SR) // CHUNK_SAMPLES) * CHUNK_SAMPLES)
-                    for s in CLI_BUCKET_SECONDS]
 CHUNK_VS_CPU = (2, 8 * CHUNK_SAMPLES)       # the card-against-CPU batch
 
 
 def chunk_models_logged() -> dict:
-    """``serve/bench_chunk.py``'s f32 and bf16 models on the card."""
+    """``testing.chunk_models``' f32 and bf16 models on the card."""
     models, moved = chunk_models(device="cuda")
     log(f"chunk: ChunkConformer(S) from configs/chunk_conformerS.yml, "
         f"seeded; first conv x10, blank bias moved by {moved:.4f} (the "
@@ -1375,52 +785,9 @@ def check_share(share: float, what: str) -> None:
                              f"of {what}, not 20-80 %")
 
 
-def phase_chunk_kernel() -> dict:
-    """K1 and K1b 'valid' at the chunk path's shapes: held against their
-    plain versions, then timed with the plain versions and ``torch.stft``."""
-    shapes = [*CHUNK_K1_SHAPES.values(), *CHUNK_CLI_SHAPES, CHUNK_VS_CPU]
-    held = [hold_k1("valid", b, t) for b, t in shapes]
-    out = {"max_abs_err": max(h[0] for h in held),
-           "log_mel_max_abs_err": max(h[2] for h in held),
-           "log_mel": {}}
-    out["train_cli"] = []
-    for b, t in CHUNK_CLI_SHAPES:
-        times = time_k1("valid", b, t, reps=20, graph=True)
-        out["train_cli"].append(k1_numbers(b, t, times))
-        log(f"chunk_kernel: K1 valid B={b} T={t} (a chunk train cli bucket):"
-            f" kernel {fmt_times(times['kernel'])}; kernel replayed from a "
-            f"CUDA graph {fmt_times(times['kernel_graph'])}; plain "
-            f"{fmt_times(times['plain'])}; library {fmt_times(times['library'])}"
-            f"; bound_ms {times['bound_ms']:.6f} by {times['bound_by']} "
-            f"({times['bytes']:.4e} B)")
-    for name, (b, t) in CHUNK_K1_SHAPES.items():
-        # the stream, pool and cli shapes are 20 KB, 5 MB and 0.5 MB in:
-        # events time the host's enqueue rate there, a graph replay the
-        # device's own; at the train batch both are given
-        small = name != "offline"
-        times = time_k1("valid", b, t, reps=50, graph=small)
-        out[name] = k1_numbers(b, t, times)
-        replay = ""
-        if small:
-            replay = (f"; kernel replayed from a CUDA graph "
-                      f"{fmt_times(times['kernel_graph'])}")
-        log(f"chunk_kernel: K1 valid B={b} T={t} ({name}): kernel "
-            f"{fmt_times(times['kernel'])}{replay}; plain "
-            f"{fmt_times(times['plain'])}; library (torch.stft, left pad "
-            f"1023, center=False, + abs()**2) {fmt_times(times['library'])}"
-            f"; bound_ms {times['bound_ms']:.6f} by {times['bound_by']} "
-            f"({times['bytes']:.4e} B, {times['flops']:.4e} FFT FLOP)")
-        if name == "cli":
-            continue
-        times = time_k1("valid", b, t, reps=50, graph=small, log_mel=True)
-        out["log_mel"][name] = k1_numbers(b, t, times)
-        log_k1b("chunk_kernel", f"valid B={b} T={t} ({name})", times)
-    return out
-
-
-def phase_chunk_offline(models: dict, reps: int = 5) -> int:
+def phase_chunk_offline(models: dict) -> int:
     """``make_chunk_predict_step`` at B = 128 x 7 s. Returns K1's and K1b's
-    launches in the timed calls."""
+    launches in its calls."""
     from tensorflowasr_tpu_torch.train.chunk_trainer import (
         make_chunk_predict_step,
     )
@@ -1433,22 +800,9 @@ def phase_chunk_offline(models: dict, reps: int = 5) -> int:
     in_len = torch.full((OFFLINE_B,), t_enc, dtype=torch.int32, device=dev)
     launches = (0, 0)
     for dtype, model in models.items():
-        step = make_chunk_predict_step(model)
-        torch.cuda.reset_peak_memory_stats()
-
-        def run():
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                out = step(wav, in_len)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            return times, out
-
-        step(wav, in_len)                                   # warm-up
-        (times, out), n = counted(run)
-        launches = add(launches, expect(n, reps,
-                                        f"{reps} chunk predict calls"))
+        out, n = counted(lambda: make_chunk_predict_step(model)(wav, in_len))
+        launches = add(launches, expect(n, 1, f"a {dtype} chunk predict "
+                                              f"call"))
         char_ids, char_lens, phone_ids, phone_lens = out
         if tuple(phone_ids.shape) != (OFFLINE_B, t_enc) or \
                 tuple(char_ids.shape) != (OFFLINE_B, t_enc):
@@ -1461,23 +815,17 @@ def phase_chunk_offline(models: dict, reps: int = 5) -> int:
         if int(counts.min()) <= 0 or int(phone_lens.min()) <= 0 or \
                 int(char_ids.max()) >= N_CHAR:
             raise AssertionError("a row picked nothing or decoded nothing")
-        step_s = statistics.median(times)
         log(f"chunk_offline: make_chunk_predict_step {dtype} B={OFFLINE_B} "
-            f"x {OFFLINE_SECONDS} s: median {step_s * 1e3:.3f} ms (min "
-            f"{min(times) * 1e3:.3f}, {reps} calls), per-stream RTF "
-            f"{step_s / (OFFLINE_B * OFFLINE_SECONDS):.3e}; picked "
-            f"{int(counts.min())}-{int(counts.max())} of {t_enc} frames a "
-            f"row ({share:.1%}); char lengths {int(char_lens.min())}-"
-            f"{int(char_lens.max())}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"x {OFFLINE_SECONDS} s: picked {int(counts.min())}-"
+            f"{int(counts.max())} of {t_enc} frames a row ({share:.1%}); "
+            f"char lengths {int(char_lens.min())}-{int(char_lens.max())}")
     return launches
 
 
-def chained(step, n: int):
+def without_syncs(step, n: int) -> None:
     """``step()`` n times with every implicit host sync an error, then one
-    sync: returns the seconds per call."""
+    sync."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(n):
@@ -1485,15 +833,14 @@ def chained(step, n: int):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n
 
 
 def phase_chunk_stream(models: dict) -> int:
-    """One stream: ``fused_stream_step`` chained on its caches (device
-    only) and ``ChunkStreamSession`` (a fetch a chunk), in f32 and bf16;
-    then, in f32, the session against the offline decode and the card's
-    picker logits against the CPU's. Returns K1's and K1b's launches in the
-    timed runs."""
+    """One stream: ``fused_stream_step`` chained on its caches with no
+    implicit sync, and ``ChunkStreamSession`` (a fetch a chunk), in f32 and
+    bf16; then, in f32, the session against the offline decode and the
+    card's picker logits against the CPU's. Returns K1's and K1b's
+    launches."""
     from tensorflowasr_tpu_torch.models.chunk_conformer import ChunkConformer
     from tensorflowasr_tpu_torch.serve.chunk_session import (
         ChunkStreamSession,
@@ -1505,56 +852,31 @@ def phase_chunk_stream(models: dict) -> int:
     chunks = torch.from_numpy(signal.reshape(STREAM_CHUNKS, 1, -1)).to(dev)
     launches, results = (0, 0), {}
     for dtype, model in models.items():
-        state = {}
+        state = {"caches": model.init_stream_caches(1), "i": 0}
 
-        def device_only():
-            times = []
-            for _ in range(STREAM_REPS):
-                state["caches"] = model.init_stream_caches(1)
-                state["i"] = 0
-
-                def step():
-                    out = model.fused_stream_step(chunks[state["i"]],
-                                                  state["caches"])
-                    state["caches"] = out[4]
-                    state["i"] += 1
-
-                times.append(chained(step, STREAM_CHUNKS))
-            return times
+        def step():
+            out = model.fused_stream_step(chunks[state["i"]],
+                                          state["caches"])
+            state["caches"] = out[4]
+            state["i"] += 1
 
         session = ChunkStreamSession(model, device="cuda")
 
-        def wall():
-            session.reset()
-            times = []
+        def feed():
             for i in range(STREAM_CHUNKS):
-                t0 = time.perf_counter()
                 session.feed(signal[i * CHUNK_SAMPLES:(i + 1) * CHUNK_SAMPLES])
-                times.append(time.perf_counter() - t0)
-            return times, session.flush()
+            return session.flush()
 
         with torch.no_grad():
-            for i in range(3):                                  # warm-up
-                model.fused_stream_step(chunks[i],
-                                        model.init_stream_caches(1))
-            session.feed(signal[:CHUNK_SAMPLES])
-            dev_times, n_dev = counted(device_only)
-            (wall_times, result), n_wall = counted(wall)
-        expect(n_dev, STREAM_REPS * STREAM_CHUNKS,
-               "the chained stream steps")
-        expect(n_wall, STREAM_CHUNKS, "the session's chunks")
-        launches = add(launches, add(n_dev, n_wall))
+            _, n_dev = counted(lambda: without_syncs(step, STREAM_CHUNKS))
+            result, n_feed = counted(feed)
+        expect(n_dev, STREAM_CHUNKS, "the chained stream steps")
+        expect(n_feed, STREAM_CHUNKS, "the session's chunks")
+        launches = add(launches, add(n_dev, n_feed))
         results[dtype] = result
-        best, med = min(dev_times), statistics.median(wall_times)
-        log(f"chunk_stream: {dtype} fused_stream_step, device only "
-            f"({STREAM_CHUNKS} chained chunks, one sync, no implicit sync "
-            f"under set_sync_debug_mode('error')): best "
-            f"{best * 1e3:.3f} ms a chunk (median "
-            f"{statistics.median(dev_times) * 1e3:.3f} of {STREAM_REPS}), "
-            f"RTF {best / CHUNK_S:.4f}; ChunkStreamSession wall (a fetch a "
-            f"chunk): median {med * 1e3:.3f} ms a chunk (min "
-            f"{min(wall_times) * 1e3:.3f}, max {max(wall_times) * 1e3:.3f}),"
-            f" RTF {med / CHUNK_S:.4f}; {len(result['phone_ids'])} phones, "
+        log(f"chunk_stream: {dtype} fused_stream_step chained over "
+            f"{STREAM_CHUNKS} chunks with no implicit sync; "
+            f"ChunkStreamSession {len(result['phone_ids'])} phones, "
             f"{len(result['char_ids'])} chars on the 8 s signal")
 
     # f32: streaming ids = the offline decode, on the card
@@ -1569,11 +891,9 @@ def phase_chunk_stream(models: dict) -> int:
     if results["float32"]["phone_ids"] != offline:
         raise AssertionError("the session's phone ids differ from the "
                              "offline decode")
-    top2 = logits[0].topk(2, dim=-1).values
     log(f"chunk_stream: f32 session phone ids = offline encode_to_phones "
         f"argmax, collapsed ({share:.1%} of the frames picked, "
-        f"{len(offline)} phones; smallest top-2 margin "
-        f"{float((top2[:, 0] - top2[:, 1]).min()):.3e})")
+        f"{len(offline)} phones)")
 
     # f32 picker logits on the card against the CPU port, same weights
     cpu = ChunkConformer(f32.cfg, N_PHONE, N_CHAR)
@@ -1621,7 +941,7 @@ def pool_requests(model, seconds=(2.0, 3.5, 5.0, 8.0)) -> None:
     for i in range(3):
         slot = server.open()
         queues[slot], stream_of[slot] = packets(wavs[i]), i
-    t0, ticks = time.perf_counter(), 0
+    ticks = 0
     while queues:
         for slot in list(queues):
             server.feed(slot, queues[slot].pop(0))
@@ -1633,22 +953,21 @@ def pool_requests(model, seconds=(2.0, 3.5, 5.0, 8.0)) -> None:
             if 3 not in stream_of.values():
                 new = server.open()
                 queues[new], stream_of[new] = packets(wavs[3]), 3
-    wall = time.perf_counter() - t0
     if [got[i] for i in range(len(wavs))] != singles:
         raise AssertionError("the pool's results differ from independent "
                              "sessions")
     log(f"chunk_pool: f32 request check: {len(wavs)} streams of {seconds} s "
         f"in odd-sized packets through {POOL_SLOTS} slots ({ticks} feed "
-        f"rounds, {wall:.2f} s) = {len(wavs)} independent sessions "
+        f"rounds) = {len(wavs)} independent sessions "
         f"(phones {[len(r['phone_ids']) for r in singles]}, chars "
         f"{[len(r['char_ids']) for r in singles]})")
 
 
 def phase_chunk_pool(models: dict) -> int:
     """``MultiStreamChunkServer``'s step over 256 slots, f32 and bf16: the
-    tick chained on its caches (best of 10 x 25), and the server's own
-    ticks (upload, step, fetch); then the request check. Returns K1's and
-    K1b's launches."""
+    step chained on its caches with no implicit sync, and the server's own
+    tick (upload, step, fetch) draining 25 chunks of every slot; then the
+    request check. Returns K1's and K1b's launches."""
     from tensorflowasr_tpu_torch.serve.multi_session import (
         MultiStreamChunkServer,
     )
@@ -1659,49 +978,32 @@ def phase_chunk_pool(models: dict) -> int:
     first = torch.from_numpy(signal[:, :CHUNK_SAMPLES].copy()).to(dev)
     launches = (0, 0)
     for dtype, model in models.items():
-        torch.cuda.reset_peak_memory_stats()
         server = MultiStreamChunkServer(model, n_slots=POOL_SLOTS,
                                         device="cuda")
 
         def ticks():
-            times = []
-            for _ in range(POOL_REPS):
-                state = {"caches": model.init_multi_stream_caches(POOL_SLOTS)}
+            state = {"caches": model.init_multi_stream_caches(POOL_SLOTS)}
 
-                def step():
-                    *ids, state["caches"] = model.batched_stream_step(
-                        first, state["caches"])
-                    state["sum"] = sum(x.sum() for x in ids)
+            def step():
+                *ids, state["caches"] = model.batched_stream_step(
+                    first, state["caches"])
+                state["sum"] = sum(x.sum() for x in ids)
 
-                times.append(chained(step, POOL_TICKS))
+            without_syncs(step, POOL_TICKS)
             slots = [server.open() for _ in range(POOL_SLOTS)]
             for slot in slots:
                 server.feed(slot, signal[slot])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             server.tick()                        # drains POOL_TICKS chunks
-            served = (time.perf_counter() - t0) / POOL_TICKS
             for slot in slots:
                 server.close(slot)
-            return times, served
 
         with torch.no_grad():
-            model.batched_stream_step(
-                first, model.init_multi_stream_caches(POOL_SLOTS))  # warm
-            (times, served), n = counted(ticks)
-        launches = add(launches, expect(
-            n, POOL_REPS * POOL_TICKS + POOL_TICKS, "the ticks"))
-        tick_s = min(times)
+            _, n = counted(ticks)
+        launches = add(launches, expect(n, 2 * POOL_TICKS, "the ticks"))
         log(f"chunk_pool: {dtype} batched_stream_step over {POOL_SLOTS} "
-            f"slots, chained (one sync, no implicit sync): best "
-            f"{tick_s * 1e3:.3f} ms a tick (median "
-            f"{statistics.median(times) * 1e3:.3f} of {POOL_REPS} x "
-            f"{POOL_TICKS}) -> {POOL_SLOTS * CHUNK_S / tick_s:.1f} streams "
-            f"in real time, per-stream RTF {tick_s / CHUNK_S:.4f}; "
-            f"MultiStreamChunkServer.tick (upload, step, fetch) "
-            f"{served * 1e3:.3f} ms a tick -> "
-            f"{POOL_SLOTS * CHUNK_S / served:.1f} streams; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"slots chained over {POOL_TICKS} ticks with no implicit sync; "
+            f"MultiStreamChunkServer.tick drained {POOL_TICKS} chunks of "
+            f"every slot")
     with torch.no_grad():
         launches = add(launches, counted(
             lambda: pool_requests(models["float32"]))[1])
@@ -1745,12 +1047,10 @@ def phase_chunk_cli(model) -> int:
     # offline: a warm-up and the timed decode; the session: a warm-up chunk
     # and one launch a chunk (the wav is whole chunks, so no flush step)
     expect(launches, 3 + CLI_CHUNKS, "the chunk CLI")
-    summary = out.getvalue().strip().splitlines()[-1]
     log(f"chunk_cli: cli.test_chunk_asr --weights (the f32 model as a flax "
         f".npz) --device cuda on an {CLI_CHUNKS * CHUNK_S:.0f} s wav: "
-        f"streamed phones = offline phones ({len(offline)}); {summary}")
+        f"streamed phones = offline phones ({len(offline)})")
     return launches
-
 
 
 # ---------------------------------------------------------------------------
@@ -1859,24 +1159,15 @@ def step_host(out) -> tuple:
     return tuple(x.cpu().numpy() for x in out[:4])
 
 
-def spread_ms(times: list) -> str:
-    ms = [x * 1e3 for x in times]
-    return (f"median {statistics.median(ms):.3f} min {min(ms):.3f} spread "
-            f"{max(ms) - min(ms):.3f} ms")
-
-
 def phase_chunk_fused(models: dict) -> tuple:
     """The fused decoder phase (``fused_decoder`` set by
     ``dataclasses.replace`` on the same f32 weights) against the sequential
     micro-steps: one stream over 50 chunks and a 256-slot pool with reset
     and advance masks, ids (near-ties reported), caches within 1e-3 of each
-    leaf's largest entry; then both timed in turns, one stream chained
-    (best of 3) and the 256-slot tick (best of 10 x 25), every implicit
-    sync an error; then kernels and copies a chunk of each from
-    ``serve/profile_chunk.py``. Returns K1's and K1b's launches in the
-    timed runs."""
-    from tensorflowasr_tpu_torch.serve.bench_chunk import with_fused_decoder
-    from tensorflowasr_tpu_torch.serve.profile_chunk import profile
+    leaf's largest entry; then both paths chained, one stream and the
+    256-slot tick, with every implicit sync an error. Returns K1's and
+    K1b's launches in the chained runs."""
+    from tensorflowasr_tpu_torch.testing import with_fused_decoder
 
     dev = torch.device("cuda")
     seq = models["float32"]
@@ -1939,60 +1230,35 @@ def phase_chunk_fused(models: dict) -> tuple:
         f"{diffs.close()}; caches within {worst:.3e} of each leaf's largest "
         f"entry")
 
-    # times, the two paths in turns
+    # both paths chained with no implicit sync
     first = torch.from_numpy(pool[:, 0].copy()).to(dev)
-    stream_t = {seq: [], fused: []}
-    tick_t = {seq: [], fused: []}
 
-    def timed():
-        for rep in range(max(STREAM_REPS, POOL_REPS)):
-            order = (seq, fused) if rep % 2 == 0 else (fused, seq)
-            for m in order:
-                state = {}
-                if rep < STREAM_REPS:
-                    state["caches"], state["i"] = m.init_stream_caches(1), 0
+    def run():
+        for m in (seq, fused):
+            state = {"caches": m.init_stream_caches(1), "i": 0}
 
-                    def step():
-                        out = m.fused_stream_step(chunks[state["i"]],
-                                                  state["caches"])
-                        state["caches"] = out[4]
-                        state["i"] += 1
+            def step():
+                out = m.fused_stream_step(chunks[state["i"]],
+                                          state["caches"])
+                state["caches"] = out[4]
+                state["i"] += 1
 
-                    stream_t[m].append(chained(step, STREAM_CHUNKS))
-                state["caches"] = m.init_multi_stream_caches(POOL_SLOTS)
+            without_syncs(step, STREAM_CHUNKS)
+            state["caches"] = m.init_multi_stream_caches(POOL_SLOTS)
 
-                def tick():
-                    *_, state["caches"] = m.batched_stream_step(
-                        first, state["caches"])
+            def tick():
+                *_, state["caches"] = m.batched_stream_step(
+                    first, state["caches"])
 
-                tick_t[m].append(chained(tick, POOL_TICKS))
+            without_syncs(tick, POOL_TICKS)
 
     with torch.no_grad():
-        for m in (seq, fused):                                 # warm-up
-            m.fused_stream_step(chunks[0], m.init_stream_caches(1))
-            m.batched_stream_step(first,
-                                  m.init_multi_stream_caches(POOL_SLOTS))
-        _, launches = counted(timed)
-    expect(launches, 2 * (STREAM_REPS * STREAM_CHUNKS
-                          + POOL_REPS * POOL_TICKS),
-           "the timed fused and sequential steps")
-    numbers = {}
-    for name, m in (("sequential", seq), ("fused", fused)):
-        s, k = min(stream_t[m]), min(tick_t[m])
-        numbers[name] = {"stream_ms": s * 1e3, "tick_ms": k * 1e3}
-        log(f"chunk_fused: f32 {name} decoder: one stream chained "
-            f"({STREAM_CHUNKS} chunks, one sync, no implicit sync) "
-            f"{spread_ms(stream_t[m])} a chunk over {STREAM_REPS}, best RTF "
-            f"{s / CHUNK_S:.4f}; {POOL_SLOTS}-slot tick chained "
-            f"{spread_ms(tick_t[m])} over {POOL_REPS} x {POOL_TICKS}, best "
-            f"{POOL_SLOTS * CHUNK_S / k:.1f} streams in real time")
-
-    # kernels and copies a chunk, profiled
-    with torch.no_grad():
-        for slots in (1, POOL_SLOTS):
-            for name, m in (("sequential", seq), ("fused", fused)):
-                numbers[name][f"profile_{slots}"] = profile(m, slots, top=8)
-    log("chunk_fused: " + json.dumps({"chunk_fused": numbers}))
+        _, launches = counted(run)
+    expect(launches, 2 * (STREAM_CHUNKS + POOL_TICKS),
+           "the chained fused and sequential steps")
+    log(f"chunk_fused: both decoders chained with no implicit sync: one "
+        f"stream over {STREAM_CHUNKS} chunks and the {POOL_SLOTS}-slot step "
+        f"over {POOL_TICKS} ticks")
     return launches
 
 
@@ -2000,149 +1266,32 @@ def phase_chunk_fused(models: dict) -> tuple:
 # Chunk training: ChunkTrainer on ChunkConformer(S)
 # ---------------------------------------------------------------------------
 
-def picks(trainer, batch) -> tuple:
-    """(picked share, t_ref) of one training-mode forward without
-    gradients; the BatchNorm running statistics stay where they are."""
-    from tensorflowasr_tpu_torch.models.layers import BatchNorm
-    from tensorflowasr_tpu_torch.train.chunk_trainer import label_width
-
-    model = trainer.state.model.train()
-    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    for m in norms:
-        m.track_stats = False
-    try:
-        with torch.no_grad():
-            fwd = model.train_forward(batch["wav"], batch["extra_phones"],
-                                      trainer.max_pick,
-                                      label_width=label_width(batch))
-    finally:
-        for m in norms:
-            m.track_stats = True
-    counts = fwd["picked_counts"]
-    share = float(counts.sum()) / (counts.numel()
-                                   * fwd["phone_logits"].shape[1])
-    return share, int(fwd["t_ref"])
-
-
-def sync_points(step) -> dict:
-    """``step()`` once with every implicit host sync reported
-    (``set_sync_debug_mode("warn")``): {(the port's innermost line on the
-    stack, the message): count}."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    found = {}
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "is a prototype feature" in str(message):
-            return                  # set_sync_debug_mode's own notice
-        ours = [f for f in traceback.extract_stack()
-                if "tensorflowasr_tpu_torch" in f.filename]
-        where = (f"{os.path.relpath(ours[-1].filename, root)}:"
-                 f"{ours[-1].lineno}" if ours else f"{filename}:{lineno}")
-        key = (where, str(message).splitlines()[0][:100])
-        found[key] = found.get(key, 0) + 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return found
-
-
-def chunk_train_stage_split(trainer, batch) -> dict:
-    """CUDA-event times of one more chunk ``train_step``'s stages, in ms."""
-    from tensorflowasr_tpu_torch.train.chunk_trainer import (
-        make_chunk_train_step,
-    )
-
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    step = make_chunk_train_step(trainer.max_pick, trainer.txt_ctc_length,
-                                 trainer.loss_reduction, mark=mark)
-    mark("start")
-    step(trainer.state, batch)
-    torch.cuda.synchronize()
-    return {name: round(prev.elapsed_time(ev), 4)
-            for (_, prev), (name, ev) in zip(marks, marks[1:])}
-
-
 def phase_chunk_train(steps: int = 10) -> int:
-    """Returns K1's and K1b's launches in the chunk ``train_step`` calls
-    alone."""
+    """A warm chunk ``train_step`` and ``steps`` more in f32 and in bf16.
+    Returns K1's and K1b's launches in the ``train_step`` calls alone."""
     numpy_batch = chunk_train_batch()
-    audio_s = TRAIN_B * TRAIN_SECONDS
     launches = (0, 0)
     for dtype in ("float32", "bfloat16"):
         trainer = new_chunk_trainer(dtype, "cuda")
         state = trainer.state
         batch = trainer._prepare_batch(numpy_batch)
-        before = picks(trainer, batch)
-        torch.cuda.reset_peak_memory_stats()
-        losses, times = [], []
 
         def run():
-            _, m = trainer.train_step(state, batch)             # warm
-            torch.cuda.synchronize()
-            losses.append(m["train_loss"])
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                _, m = trainer.train_step(state, batch)
-                losses.append(m["train_loss"])
-            torch.cuda.synchronize()
-            back = (time.perf_counter() - t0) / steps
-            for _ in range(steps):
-                t0 = time.perf_counter()
-                _, m = trainer.train_step(state, batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                losses.append(m["train_loss"])
-            return back
+            return [trainer.train_step(state, batch)[1]["train_loss"]
+                    for _ in range(steps + 1)]
 
-        pipelined, n = counted(run)
-        if state.step != 2 * steps + 1:
+        losses, n = counted(run)
+        if state.step != steps + 1:
             raise AssertionError(f"{state.step} chunk train steps, not "
-                                 f"{2 * steps + 1}")
+                                 f"{steps + 1}")
         launches = add(launches, expect(n, state.step,
                                         f"{state.step} chunk train steps"))
-        peak = torch.cuda.max_memory_allocated() / 2**30
         values = [float(v) for v in torch.stack(losses).cpu()]
         if not all(math.isfinite(v) for v in values):
             raise AssertionError(f"non-finite train_loss: {values}")
-        after = picks(trainer, batch)
-        step = statistics.median(times)
-        log(f"chunk_train: train_step {dtype} B={TRAIN_B} x {TRAIN_SECONDS} "
-            f"s, 64 + 64 phones, 32 + 32 chars: {steps} steps back to back "
-            f"{pipelined * 1e3:.3f} ms a step, {audio_s / pipelined:.1f} "
-            f"audio s/s; median {step * 1e3:.3f} ms (min "
-            f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; {steps} "
-            f"steps, each waited for), {audio_s / step:.1f} audio s/s; peak "
-            f"memory {peak:.2f} GiB; K1 and K1b launches {n}")
-        log(f"chunk_train: {dtype} train_loss first {values[0]:.4f}, last "
-            f"{values[-1]:.4f}; picked {before[0]:.1%} of the frames, t_ref "
-            f"{before[1]} before the steps, {after[0]:.1%} and t_ref "
-            f"{after[1]} after")
-        if dtype == "float32":
-            log(f"chunk_train: {dtype} stages (ms): "
-                f"{json.dumps(chunk_train_stage_split(trainer, batch))}")
-        found = sync_points(lambda: trainer.train_step(state, batch))
-        if found:
-            log(f"chunk_train: warning: a {dtype} train step waits for the "
-                f"device {sum(found.values())} times: " + "; ".join(
-                    f"{n} x {where} ({msg})"
-                    for (where, msg), n in sorted(found.items())))
-        else:
-            chained(lambda: trainer.train_step(state, batch), 1)
-            log(f"chunk_train: {dtype} train step has no implicit sync")
+        log(f"chunk_train: {dtype} train_step B={TRAIN_B} x {TRAIN_SECONDS} "
+            f"s, 64 + 64 phones, 32 + 32 chars: train_loss first "
+            f"{values[0]:.4f}, last {values[-1]:.4f} after {steps} steps")
         del trainer, state, batch
         torch.cuda.empty_cache()
     return launches
@@ -2210,42 +1359,29 @@ def phase_chunk_train_cli(tmp: str) -> int:
               os.path.join(root, "configs", "chunk_conformerS.yml"),
               "--device", "cuda", "--compute_dtype", "float32"]
 
-    def quiet(main, args):
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(err):
-            rc = main(args)
-        return rc, out.getvalue(), err.getvalue(), \
-            time.perf_counter() - t0
-
     def run():
-        t0 = time.perf_counter()
         if train_asr.main(common + ["--total_steps", "3",
                                     "--data_workers", "2"]) != 0:
             raise AssertionError("cli.train_asr (chunk) failed")
-        return (time.perf_counter() - t0,
-                quiet(eval_am.main, common + ["--max_batches", "1"]),
-                quiet(test_chunk_asr.main, common + ["--wav", wav_path]))
+        return (run_cli(eval_am.main, common + ["--max_batches", "1"]),
+                run_cli(test_chunk_asr.main, common + ["--wav", wav_path]))
 
-    (t_train, evaluated, tested), launches = counted(run)
+    ((result, _, eval_err), (_, tested, test_err)), launches = counted(run)
     ckpts = sorted(os.listdir(os.path.join(tmp, "logs", "checkpoints")))
     with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
         logged = [json.loads(line) for line in f]
-    for what, (rc, _, err, _) in (("eval_am", evaluated),
-                                  ("test_chunk_asr", tested)):
-        if rc != 0 or "no checkpoint found" in err:
-            raise AssertionError(f"cli.{what}: rc {rc}, stderr {err[-400:]}")
+    for what, err in (("eval_am", eval_err), ("test_chunk_asr", test_err)):
+        if "no checkpoint found" in err:
+            raise AssertionError(f"cli.{what}: stderr {err[-400:]}")
     if ckpts != ["ckpt_000000003.pt"]:
         raise AssertionError(f"checkpoints {ckpts}")
     if [m["step"] for m in logged] != [2] or not math.isfinite(
             logged[0]["train_loss"]):
         raise AssertionError(f"metrics.jsonl {logged}")
-    result = json.loads(evaluated[1].strip().splitlines()[-1])
     for key in ("phone_cer", "phone_ser", "char_cer", "char_ser"):
         if not math.isfinite(result[key]):
             raise AssertionError(f"eval_am: {key} = {result[key]}")
-    lines = dict(line.split(":", 1) for line in tested[1].splitlines()
+    lines = dict(line.split(":", 1) for line in tested.splitlines()
                  if ":" in line and not line.startswith("audio"))
     offline, stream = lines["offline phones"].split(), \
         lines["stream  phones"].split()
@@ -2256,13 +1392,11 @@ def phase_chunk_train_cli(tmp: str) -> int:
     # decode, its warm-up chunk and one launch a chunk
     expect(launches, 3 + 1 + 3 + CLI_CHUNKS,
            "the chunk train CLI calls")
-    log(f"chunk_train_cli: train_asr f32, 3 steps of B={CLI_B} in "
-        f"{t_train:.2f} s (train_loss {logged[0]['train_loss']:.3f} at step "
-        f"2), checkpoints {ckpts}; eval_am restored step 3 and scored 1 "
-        f"batch in {evaluated[3]:.2f} s: {json.dumps(result)}; "
+    log(f"chunk_train_cli: train_asr f32, 3 steps of B={CLI_B} (train_loss "
+        f"{logged[0]['train_loss']:.3f} at step 2), checkpoints {ckpts}; "
+        f"eval_am restored step 3 and scored 1 batch: {json.dumps(result)}; "
         f"test_chunk_asr restored step 3: streamed phones = offline phones "
-        f"({len(offline)}) on an {CLI_CHUNKS * CHUNK_S:.0f} s wav; "
-        f"{tested[1].strip().splitlines()[-1]}")
+        f"({len(offline)}) on an {CLI_CHUNKS * CHUNK_S:.0f} s wav")
     return launches
 
 
@@ -2279,15 +1413,10 @@ def offline_request(client, wav: np.ndarray) -> dict:
     it: ``info``, ``encode`` for each chunk, the encoder rows padded to
     whole groups of 4 chunks, ``ctc_logits``, greedy CTC on the host, the
     phones padded with 10 zeros, ``translate``. Returns the ids and the
-    times."""
-    t0 = time.perf_counter()
+    tensors that came over the wire."""
     cs = int(client.call("info")[0][0])
-    calls = []
-    encs = []
-    for i in range(0, len(wav), cs):
-        c0 = time.perf_counter()
-        encs.append(client.call("encode", wav[None, i:i + cs])[0])
-        calls.append(time.perf_counter() - c0)
+    encs = [client.call("encode", wav[None, i:i + cs])[0]
+            for i in range(0, len(wav), cs)]
     frames = encs[0].shape[0]                 # a whole chunk's rows
     enc = np.concatenate(encs)
     groups = -(-(-(-len(enc) // frames)) // 4) * 4
@@ -2302,31 +1431,20 @@ def offline_request(client, wav: np.ndarray) -> dict:
     padded[0, :len(phones)] = phones
     char_logits = client.call("translate", padded, buf)[0]
     return {"phones": phones, "chars": char_logits.argmax(-1).tolist(),
-            "wall": time.perf_counter() - t0, "encode_calls": calls,
             "tensors": (encs, buf, logits, padded, char_logits)}
 
 
-def stream_request(client, wav: np.ndarray, cs: int) -> dict:
+def stream_request(client, wav: np.ndarray) -> dict:
     """``stream_open``, ``stream_feed`` in odd-sized packets,
-    ``stream_close``; each feed's wall over the chunks it completed."""
+    ``stream_close``."""
     slot = client.call("stream_open")[0]
-    per_chunk, buffered, off, k = [], 0, 0, 0
+    off, k = 0, 0
     while off < len(wav):
         pkt = wav[off:off + SOCKET_PACKETS[k % len(SOCKET_PACKETS)]]
         off, k = off + len(pkt), k + 1
-        t0 = time.perf_counter()
         client.call("stream_feed", slot, pkt)
-        wall = time.perf_counter() - t0
-        done, buffered = divmod(buffered + len(pkt), cs)
-        if done:
-            per_chunk.extend([wall / done] * done)
     ph, ch = client.call("stream_close", slot)
-    return {"phone_ids": ph.tolist(), "char_ids": ch.tolist(),
-            "per_chunk": per_chunk}
-
-
-def pct(xs: list, q: float) -> float:
-    return float(np.percentile(np.asarray(xs) * 1e3, q))
+    return {"phone_ids": ph.tolist(), "char_ids": ch.tolist()}
 
 
 @torch.no_grad()
@@ -2335,10 +1453,10 @@ def calibrate_checkpoints(cli_data: str, model_yml: str, chunk_data: str,
     """Save each CLI phase's newest checkpoint again as its next step with
     the blank bias moved by the median margin of the blank logit on 4 x 4
     s of gated tones (the chunk model also with its first conv x10:
-    ``serve/bench_chunk.py::calibrate``): a few steps from a random init
+    ``testing.calibrate``): a few steps from a random init
     decode every frame as blank, and the served ids would be empty."""
     from tensorflowasr_tpu_torch.cli.common import build_featurizers
-    from tensorflowasr_tpu_torch.serve.bench_chunk import calibrate
+    from tensorflowasr_tpu_torch.testing import calibrate
     from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
     from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
     from tensorflowasr_tpu_torch.utils.config import UserConfig
@@ -2415,13 +1533,11 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
         "--stream_slots", str(POOL_SLOTS), "--stream_wait_ms", "8",
         "--port", "0", "--device", "cuda", "--compute_dtype", "float32",
         "--log_level", "WARNING"])
-    t0 = time.perf_counter()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         ops, inline_ops, front = serve_model.build_ops(args)
     if "checkpoint under" in err.getvalue():
         raise AssertionError(f"serve_model: {err.getvalue()[-400:]}")
-    built = time.perf_counter() - t0
 
     # the references: the same checkpoints restored independently
     wavs = [tones(s, seed=400 + i) for i, s in enumerate(SOCKET_SECONDS)]
@@ -2454,12 +1570,11 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
     del trainer, ctrainer
 
     srv = front._srv
-    cs = srv.cfg.chunk_samples
-    coalesced = []
+    ticks = []
     dispatch = srv._dispatch
 
     def spy(adv):
-        coalesced.append(int(adv.sum()))
+        ticks.append(int(adv.sum()))
         return dispatch(adv)
 
     srv._dispatch = spy
@@ -2471,7 +1586,7 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
     def client_alone():
         client = ModelClient(tcp_port=server.tcp_port)
         try:
-            results["alone"] = stream_request(client, wavs[-1], cs)
+            results["alone"] = stream_request(client, wavs[-1])
         finally:
             client.close()
 
@@ -2479,7 +1594,7 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
         cli = ModelClient(tcp_port=server.tcp_port)
         try:
             results["offline"][i] = offline_request(cli, wavs[i])
-            results["stream"][i] = stream_request(cli, wavs[i], cs)
+            results["stream"][i] = stream_request(cli, wavs[i])
         finally:
             cli.close()
 
@@ -2513,15 +1628,13 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
         server.run_worker_loop()          # the offline ops, this thread
         clients.join(timeout=30)
 
-    t0 = time.perf_counter()
     _, launches = counted(serve)
-    served = time.perf_counter() - t0
     front.shutdown()
     if failures:
         raise failures[0]
     encodes = sum(-(-len(w) // engine.chunk_samples) for w in wavs)
-    expect(launches, encodes + len(coalesced),
-           f"the served window ({encodes} encodes, {len(coalesced)} ticks)")
+    expect(launches, encodes + len(ticks),
+           f"the served window ({encodes} encodes, {len(ticks)} ticks)")
     # the tensors that came over the wire against the same calls in
     # process, within 1e-5 of each one's largest entry
     model, dev, worst = engine.model, engine.device, 0.0
@@ -2554,10 +1667,7 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
     if [results["alone"]["phone_ids"], results["alone"]["char_ids"]] != [
             stream_want[-1]["phone_ids"], stream_want[-1]["char_ids"]]:
         raise AssertionError("the lone stream differs from its session's")
-    four = [x for st in results["stream"] for x in st["per_chunk"]]
-    alone = results["alone"]["per_chunk"]
-    log(f"serve_socket: checkpoints of phases 7 and 15, {calibrated}; "
-        f"cli.serve_model build_ops (restore, build, warm) {built:.2f} s; "
+    log(f"serve_socket: checkpoints of phases 8 and 15, {calibrated}; "
         f"{len(wavs)} files of {SOCKET_SECONDS} s over "
         f"127.0.0.1:{server.tcp_port}, offline and streamed, = ASREngine "
         f"and independent ChunkStreamSessions (phones "
@@ -2565,23 +1675,10 @@ def phase_serve_socket(cli_dir: str, chunk_dir: str) -> tuple:
         f"{[len(s['phone_ids']) for s in stream_want]}, chars "
         f"{[len(s['char_ids']) for s in stream_want]} streamed); encoder "
         f"rows, CTC and char logits over the wire within {worst:.3e} of the "
-        f"in-process calls; served window {served:.2f} s")
+        f"in-process calls")
     if not all(o[0] for o in offline_want) or not all(
             s["phone_ids"] for s in stream_want):
         raise AssertionError("a decode is empty: nothing was compared")
-    for i, s in enumerate(SOCKET_SECONDS):
-        off = results["offline"][i]
-        log(f"serve_socket: {s} s file, offline request round trip (info, "
-            f"{len(off['encode_calls'])} encodes, ctc_logits, translate) "
-            f"{off['wall'] * 1e3:.3f} ms; encode round trip median "
-            f"{statistics.median(off['encode_calls']) * 1e3:.3f} ms")
-    log(f"serve_socket: stream_feed wall a chunk, 1 client (8 s file, "
-        f"{len(alone)} chunks): median {pct(alone, 50):.3f} p90 "
-        f"{pct(alone, 90):.3f} ms; 4 concurrent clients ({len(four)} "
-        f"chunks): median {pct(four, 50):.3f} p90 {pct(four, 90):.3f} ms; "
-        f"{len(coalesced)} ticks coalesced {sum(coalesced)} chunks (mean "
-        f"{statistics.mean(coalesced):.2f}, max {max(coalesced)}, "
-        f"{sum(c > 1 for c in coalesced)} ticks with more than one)")
     return launches
 
 
@@ -2613,32 +1710,6 @@ class Tap:
     def remove(self) -> list:
         delattr(self.obj, self.name)
         return self.seen
-
-
-def decode_margins(asr, encs) -> tuple:
-    """The smallest top-two gap of the CTC logits over the decoded rows and
-    of the char logits over the emitted positions, for one
-    ``ASREngine.decode`` of ``encs`` (its padding, its greedy CTC)."""
-    from tensorflowasr_tpu_torch.ops.ctc import ctc_greedy_decode
-
-    enc = np.concatenate(encs)
-    t = len(enc)
-    cap = -(-(-(-t // asr.chunk_frames)) // asr.pad_chunks) \
-        * asr.pad_chunks * asr.chunk_frames
-    buf = np.zeros((1, cap, enc.shape[1]), np.float32)
-    buf[0, :t] = enc
-    with torch.no_grad():
-        enc_t = torch.from_numpy(buf).to(asr.device)
-        logits = asr.model.ctc_logits(enc_t)
-        ids, lens = ctc_greedy_decode(
-            logits, torch.tensor([t], dtype=torch.int32,
-                                 device=asr.device), asr.blank)
-        padded = torch.nn.functional.pad(ids, (0, 10))
-        chars = asr.model.translate(padded, enc_t)[0]
-    top = logits[0, :t].topk(2, -1).values
-    ctop = chars[:int(lens[0]) + 1].topk(2, -1).values
-    return (float((top[:, 0] - top[:, 1]).min()),
-            float((ctop[:, 0] - ctop[:, 1]).min()))
 
 
 @torch.no_grad()
@@ -2685,7 +1756,7 @@ def vad_punc_engines(cli_data: str, work: str, stream: np.ndarray,
         build_punc_model,
         build_vad_model,
     )
-    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+    from tensorflowasr_tpu_torch import testing as synth
     from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
     from tensorflowasr_tpu_torch.train.checkpoint import CheckpointManager
     from tensorflowasr_tpu_torch.utils.config import UserConfig
@@ -2711,7 +1782,7 @@ def vad_punc_engines(cli_data: str, work: str, stream: np.ndarray,
     vad_yml = os.path.join(root, "configs", "vad_model.yml")
     vad_model, vad_state = build_vad_model(UserConfig(vad_data, vad_yml),
                                            device)
-    vad_margin = bvp.calibrate_vad(vad_model, stream)
+    vad_margin = synth.calibrate_vad(vad_model, stream)
     CheckpointManager(os.path.join(work, "vad-logs", "checkpoints")).save(
         1, vad_state)
 
@@ -2721,9 +1792,9 @@ def vad_punc_engines(cli_data: str, work: str, stream: np.ndarray,
         f.write("\n".join(["<S>", "</S>"] + [
             c for i, c in enumerate(chars) if i % 7]))
     with open(os.path.join(work, "punc_tokens.txt"), "w") as f:
-        f.write("\n".join(["<S>", "</S>", *bvp.PUNC_TOKENS]))
+        f.write("\n".join(["<S>", "</S>", *synth.PUNC_TOKENS]))
     with open(os.path.join(work, "punc.list"), "w") as f:
-        f.write(f"{chars[1]}{chars[2]}{bvp.PUNC_TOKENS[1]}\n")
+        f.write(f"{chars[1]}{chars[2]}{synth.PUNC_TOKENS[1]}\n")
     with open(os.path.join(root, "configs", "punc_settings.yml")) as f:
         punc_cfg = yaml.safe_load(f)
     punc_cfg["punc_vocab"]["vocabulary"] = os.path.join(work,
@@ -2741,7 +1812,7 @@ def vad_punc_engines(cli_data: str, work: str, stream: np.ndarray,
     rng = np.random.default_rng(8)
     ids = rng.integers(3, punc_f.num_classes, (16, 64))
     ids[:, 0], ids[:, -1] = punc_f.startid(), punc_f.endid()
-    share = bvp.calibrate_punc(punc_model, ids, PUNC_THRESHOLD)
+    share = synth.calibrate_punc(punc_model, ids, PUNC_THRESHOLD)
 
     models = {"asr": asr_model, "vad": vad_model, "punc": punc_model}
     engines = make_engines(models, char_f, punc_f, dl.punc_tokens, device)
@@ -2773,41 +1844,22 @@ def make_engines(models: dict, char_f, punc_f, punc_tokens,
 
 def live_session(engines: dict, packets: list) -> dict:
     """``StreamASRSession`` with VAD and punctuation over ``packets``
-    (pcm16 bytes), then ``final_send``: the events (task ids dropped), each
-    packet's wall by event type, the whole wall, and what the engines
-    returned (encoder rows, VAD logits, punctuation probabilities, the
-    decodes' encoder inputs)."""
+    (pcm16 bytes), then ``final_send``: the events (task ids dropped) and
+    the encoder rows the ASR engine returned."""
     from tensorflowasr_tpu_torch.serve.stream_session import (
         StreamASRSession,
     )
 
-    taps = {"enc": Tap(engines["asr"], "extract_feature"),
-            "vad": Tap(engines["vad"], "inference"),
-            "probs": Tap(engines["punc"], "_window_probs")}
-    decodes = []
-    decode = engines["asr"].decode
-
-    def recorded(encs):
-        decodes.append([np.array(e) for e in encs])
-        return decode(encs)
-    engines["asr"].decode = recorded
+    tap = Tap(engines["asr"], "extract_feature")
     session = StreamASRSession(engines["asr"], engines["vad"],
                                punc=engines["punc"], sample_rate=SR)
-    events, walls = [], []
-    t0 = time.perf_counter()
+    events = []
     for pkt in packets + [None]:
-        t = time.perf_counter()
         ev = session.send(pkt) if pkt is not None else session.final_send()
-        walls.append((ev["event_type"] if ev else "none",
-                      time.perf_counter() - t))
         if ev:
             ev.pop("task_id", None)
             events.append(ev)
-    wall = time.perf_counter() - t0
-    del engines["asr"].decode
-    out = {k: tap.remove() for k, tap in taps.items()}
-    out.update(events=events, walls=walls, wall=wall, decodes=decodes)
-    return out
+    return {"events": events, "enc": tap.remove()}
 
 
 def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
@@ -2819,15 +1871,15 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     ``cli.serve_model.build_ops`` with the VAD configs over a TCP socket
     against the in-process engine; and the native artifacts of the
     offline, chunk and VAD models read back. Returns K1's and K1b's
-    launches in the timed session and the files on the card."""
+    launches in the session and the files on the card."""
     import copy
     import filecmp
 
+    from tensorflowasr_tpu_torch import testing as synth
     from tensorflowasr_tpu_torch.cli import serve_model
     from tensorflowasr_tpu_torch.export import native_export as nx
     from tensorflowasr_tpu_torch.models import convert
     from tensorflowasr_tpu_torch.ops import frontend as fe
-    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
     from tensorflowasr_tpu_torch.serve.model_server import (
         ModelClient,
         ModelServer,
@@ -2838,10 +1890,9 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
     from tensorflowasr_tpu_torch.utils.config import UserConfig
 
-    t_phase = time.perf_counter()
     work = os.path.join(cli_dir, "vad_punc")
     os.makedirs(work)
-    stream = bvp.tone_bursts(bvp.STREAM_PATTERN, seed=1)
+    stream = synth.tone_bursts(synth.STREAM_PATTERN, seed=1)
     pcm = (np.clip(stream, -1, 1) * 32767).astype("<i2")
     packets = [pcm[i:i + PACKET].tobytes()
                for i in range(0, len(pcm), PACKET)]
@@ -2850,9 +1901,9 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
         cli_data, work, stream, device)
     log(f"serve_vad_punc: {notes}")
 
-    # the live session and the offline files, on the card (a warm pass
-    # first) and with copies of the same models on the CPU
-    files = [bvp.tone_bursts(bvp.file_pattern(s), seed=40 + i)
+    # the live session and the offline files, on the card and with copies
+    # of the same models on the CPU
+    files = [synth.tone_bursts(synth.file_pattern(s), seed=40 + i)
              for i, s in enumerate(VAD_FILE_SECONDS)]
     encodes = []
     model = engines["asr"].model
@@ -2862,27 +1913,19 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
         encodes.append(wav.shape)
         return encode(wav, *lengths)
     model.encode = counting_encode
-    live_session(engines, packets)
-    for wav in files[:1]:
-        OfflineASRSession(engines["asr"], engines["vad"],
-                          engines["punc"]).transcribe_wav(wav)
 
     def card():
-        del encodes[:]
         live = live_session(engines, packets)
         n_live = len(encodes)
-        offline, walls = [], []
+        offline = []
         for wav in files:
-            t0 = time.perf_counter()
-            segs = OfflineASRSession(engines["asr"], engines["vad"],
-                                     engines["punc"]).transcribe_wav(wav)
-            t1 = time.perf_counter()
+            offline.append(OfflineASRSession(
+                engines["asr"], engines["vad"],
+                engines["punc"]).transcribe_wav(wav))
             OfflineASRSession(engines["asr"]).transcribe_wav(wav)
-            walls.append((t1 - t0, time.perf_counter() - t1))
-            offline.append(segs)
-        return live, n_live, offline, walls
+        return live, n_live, offline
 
-    (live, n_live, offline, walls), launches = counted(card)
+    (live, n_live, offline), launches = counted(card)
     del model.encode
     # the plain file decodes (without VAD) launched too: every encode
     expect(launches, len(encodes), f"the phase's {len(encodes)} encodes "
@@ -2893,21 +1936,6 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     offline_cpu = [OfflineASRSession(cpu["asr"], cpu["vad"], cpu["punc"])
                    .transcribe_wav(wav) for wav in files]
 
-    # near-ties: VAD logits near 0, punctuation probabilities near the
-    # threshold, CTC and char top-two gaps of every decode
-    vad_min = min(float(np.abs(x).min()) for x in live["vad"])
-    punc_min = min([float(np.abs(p[1:-1].max(-1) - PUNC_THRESHOLD).min())
-                    for p in live["probs"] if len(p) > 2] or [math.inf])
-    gaps = [decode_margins(engines["asr"], encs)
-            for encs in live["decodes"] if encs]
-    ctc_gap = min([g[0] for g in gaps] or [math.inf])
-    char_gap = min([g[1] for g in gaps] or [math.inf])
-    log(f"serve_vad_punc: near-ties on the card: smallest VAD |logit| "
-        f"{vad_min:.3e} over {sum(x.size for x in live['vad'])} frames of "
-        f"{len(live['vad'])} calls; punctuation |p - {PUNC_THRESHOLD}| "
-        f"{punc_min:.3e} over {len(live['probs'])} calls; top-two gap of "
-        f"the CTC logits {ctc_gap:.3e}, of the char logits {char_gap:.3e} "
-        f"over {len(gaps)} decodes")
     enc_err = max(float(np.abs(a - b).max())
                   for a, b in zip(live["enc"], live_cpu["enc"]))
     if len(live["enc"]) != len(live_cpu["enc"]) or enc_err > 1e-3:
@@ -2931,7 +1959,7 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     if not all(len(segs) > 1 and any(s["text"] for s in segs)
                for segs in offline):
         raise AssertionError(f"a file was not segmented: {offline}")
-    punctuated = sum(any(p in t for p in bvp.PUNC_TOKENS) for t in texts)
+    punctuated = sum(any(p in t for p in synth.PUNC_TOKENS) for t in texts)
     if not punctuated:
         raise AssertionError(f"no text was punctuated: {texts}")
     log("serve_vad_punc: live session events card = CPU: "
@@ -2943,42 +1971,10 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
         f"{len(live['enc'])} encodes; the 4 files' segments "
         f"{[len(s) for s in offline]} and texts card = CPU")
 
-    by_type = {}
-    for kind, wall in live["walls"]:
-        by_type.setdefault(kind, []).append(wall)
-    log("serve_vad_punc: live session wall a 20 ms packet (ms): " + "; ".join(
-        f"{kind} median {pct(w, 50):.3f} p90 {pct(w, 90):.3f} ({len(w)})"
-        for kind, w in sorted(by_type.items())))
-    log(f"serve_vad_punc: whole 8 s stream ({len(packets)} packets + "
-        f"final_send) {live['wall']:.3f} s of wall (RTF "
-        f"{live['wall'] / 8.0:.4f}); {n_live} encodes (K1b B=1 x 7680)")
-    for s, (with_vad, without) in zip(VAD_FILE_SECONDS, walls):
-        log(f"serve_vad_punc: {s} s file, OfflineASRSession with VAD and "
-            f"punctuation {with_vad * 1e3:.3f} ms, without (PRs 1-7) "
-            f"{without * 1e3:.3f} ms")
-
-    # the engines alone: VAD on 1 s of 8 kHz audio, one 64-token window
-    frames = bvp.vad_frames(stream)
+    # the vad op over the socket (cli.serve_model with the VAD configs) on
+    # 1 s of 8 kHz audio and on the whole stream
+    frames = synth.vad_frames(stream)
     second = np.ascontiguousarray(frames[:, 100:200])
-    times = []
-    for _ in range(60):
-        t0 = time.perf_counter()
-        engines["vad"].inference(second)
-        times.append(time.perf_counter() - t0)
-    window = np.zeros((1, 64), np.int32)
-    window[0, :40] = np.random.default_rng(9).integers(
-        3, vocabs[1].num_classes, 40)
-    ptimes = []
-    for _ in range(60):
-        t0 = time.perf_counter()
-        engines["punc"]._infer(window)
-        ptimes.append(time.perf_counter() - t0)
-    log(f"serve_vad_punc: VADEngine.inference on 1 s at 8 kHz (100 "
-        f"frames) median {pct(times[10:], 50):.3f} ms (min "
-        f"{min(times) * 1e3:.3f}); PuncEngine one 64-token window median "
-        f"{pct(ptimes[10:], 50):.3f} ms (min {min(ptimes) * 1e3:.3f})")
-
-    # the vad op over the socket: cli.serve_model with the VAD configs
     model_yml = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "configs", "conformerS.yml")
     args = serve_model.parser().parse_args([
@@ -2999,9 +1995,7 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
         cli = ModelClient(tcp_port=server.tcp_port)
         try:
             for name, x in (("second", second), ("stream", frames)):
-                t0 = time.perf_counter()
-                served[name] = (cli.call("vad", x)[0],
-                                time.perf_counter() - t0)
+                served[name] = cli.call("vad", x)[0]
         except BaseException as e:            # raised on the main thread
             failures.append(e)
         finally:
@@ -3018,16 +2012,14 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     worst = 0.0
     for name, x in (("second", second), ("stream", frames)):
         want = engines["vad"].inference(x)
-        got = served[name][0]
+        got = served[name]
         err_v = float(np.abs(got - want).max() / np.abs(want).max())
         if got.shape != want.shape or err_v > 1e-5:
             raise AssertionError(f"served vad {name}: {err_v:.3e}")
         worst = max(worst, err_v)
     log(f"serve_vad_punc: cli.serve_model --vad_data_config/"
-        f"--vad_model_config, the vad op over 127.0.0.1: {frames.shape[1]} "
-        f"frames in {served['stream'][1] * 1e3:.3f} ms, 100 in "
-        f"{served['second'][1] * 1e3:.3f} ms, within {worst:.3e} of "
-        f"VADEngine in process")
+        f"--vad_model_config, the vad op over 127.0.0.1 on {frames.shape[1]} "
+        f"and 100 frames: within {worst:.3e} of VADEngine in process")
 
     # native export from port weights: offline, chunk, VAD
     chunk_cfg = UserConfig(os.path.join(chunk_dir, "data.yml"),
@@ -3046,9 +2038,7 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
     sizes = []
     for name, export, m, padding in artifacts:
         a, b = (os.path.join(work, f"{name}_{k}") for k in "ab")
-        t0 = time.perf_counter()
         export(m, a)
-        took = time.perf_counter() - t0
         export(m, b)
         for f in ("weights.bin", "manifest.json", "manifest.txt"):
             if not filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
@@ -3069,11 +2059,9 @@ def phase_serve_vad_punc(cli_dir: str, chunk_dir: str,
             raise AssertionError(f"{name}: the artifact does not hold the "
                                  f"model's weights")
         sizes.append(f"{name} {len(tensors)} tensors, "
-                     f"{os.path.getsize(os.path.join(a, 'weights.bin'))} B "
-                     f"in {took * 1e3:.1f} ms")
+                     f"{os.path.getsize(os.path.join(a, 'weights.bin'))} B")
     log(f"serve_vad_punc: native artifacts written twice with the same "
-        f"bytes and read back bit for bit: {'; '.join(sizes)}; phase "
-        f"{time.perf_counter() - t_phase:.2f} s")
+        f"bytes and read back bit for bit: {'; '.join(sizes)}")
     return launches
 
 
@@ -3176,23 +2164,14 @@ def vad_punc_configs(root: str) -> dict:
     return out
 
 
-def timed_steps(step, state, batch, steps: int) -> tuple:
-    """A warm step, then ``steps`` steps each waited for: (median ms,
-    minimum ms, the train losses)."""
-    losses, times = [], []
-    _, m = step(state, batch)
-    torch.cuda.synchronize()
-    losses.append(m["train_loss"])
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        _, m = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(m["train_loss"])
+def train_steps(step, state, batch, steps: int) -> list:
+    """A warm step, then ``steps`` more: the train losses, which must be
+    finite."""
+    losses = [step(state, batch)[1]["train_loss"] for _ in range(steps + 1)]
     values = [float(v) for v in torch.stack(losses).cpu()]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"non-finite train_loss: {values}")
-    return statistics.median(times), min(times), values
+    return values
 
 
 def card_vs_cpu(build, loss_fn, batch: dict, what: str) -> None:
@@ -3219,33 +2198,16 @@ def card_vs_cpu(build, loss_fn, batch: dict, what: str) -> None:
                              "the CPU")
 
 
-def run_cli(main_fn, args: list) -> tuple:
-    """``main_fn(args)`` with its stdout and stderr captured: (the last
-    stdout line as JSON or None, stdout, stderr, seconds)."""
-    out, err = io.StringIO(), io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = main_fn(args)
-    took = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"{main_fn.__module__}: rc {rc}, stderr "
-                             f"{err.getvalue()[-400:]}")
-    lines = out.getvalue().strip().splitlines()
-    last = json.loads(lines[-1]) if lines and lines[-1].startswith("{") \
-        else None
-    return last, out.getvalue(), err.getvalue(), took
-
-
 def phase_vad_punc_train(steps: int = 10) -> tuple:
     """VAD and punctuation training on the card. The shipped models at full
     width with seeded weights: OnlineVAD (``configs/vad_model.yml``, dmodel
     32) on a batch of ``configs/vad_data.yml``'s shape, B = 16 x 6 s at 8
     kHz (x [16, 600, 80]) from ``VADDataLoader`` over a seeded corpus of
-    tone bursts: a warm step and 10 timed f32 steps, one step on the batch
+    tone bursts: a warm step and ``steps`` f32 steps, one step on the batch
     folded by ``streaming_reshape``, one OfflineVAD step; PuncTransformer
     (``configs/punc_settings.yml``) on B = 32 x 64 tokens from
     ``PuncDataLoader``, with and without 768-d teacher features, each a
-    warm step and 10 timed steps. Each model's loss and gradient on the
+    warm step and ``steps`` more. Each model's loss and gradient on the
     card against the CPU. Then ``cli.train_vad`` -> ``cli.eval_vad
     --export_native`` and ``cli.train_punc --bert_feature_dir`` ->
     ``cli.eval_punc`` on the corpora (4 steps each with a save; each eval
@@ -3265,9 +2227,7 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
     from tensorflowasr_tpu_torch.models.vad import OfflineVAD
     from tensorflowasr_tpu_torch.train import punc_trainer, vad_trainer
     from tensorflowasr_tpu_torch.utils.config import UserConfig
-    from tensorflowasr_tpu_torch.utils.profiling import trace
 
-    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         paths = vad_punc_configs(root)
         vad_config = UserConfig(paths["vad_data"], paths["vad_model"])
@@ -3282,19 +2242,12 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
             batch = {k: torch.from_numpy(v).cuda()
                      for k, v in numpy_vad.items()}
             step = vad_trainer.make_vad_train_step(model, global_batch=VAD_B)
-            med, low, losses = timed_steps(step, state, batch, steps)
-            n_params = sum(p.numel() for p in model.parameters())
-            log(f"vad_punc_train: OnlineVAD dmodel {model.dmodel} "
-                f"({n_params} parameters) f32 train step B={VAD_B} x "
-                f"{VAD_SECONDS} s at {VAD_SR} Hz (x {list(batch['x'].shape)},"
-                f" {float(numpy_vad['labels'].mean()):.3f} of the frames "
-                f"voiced): median {med:.3f} ms (min {low:.3f}; {steps} "
-                f"steps, each waited for), "
-                f"{VAD_B * VAD_SECONDS / med * 1e3:.1f} audio s/s; train_loss {losses[0]:.4f} -> {losses[-1]:.4f}"
-                f" [{CARD}]")
-            trace(lambda: [step(state, batch) for _ in range(steps)], steps,
-                  f"vad_punc_train: OnlineVAD train step B={VAD_B}, back to "
-                  f"back [{CARD}]", "step", 8)
+            losses = train_steps(step, state, batch, steps)
+            log(f"vad_punc_train: OnlineVAD dmodel {model.dmodel} f32 train "
+                f"step B={VAD_B} x {VAD_SECONDS} s at {VAD_SR} Hz (x "
+                f"{list(batch['x'].shape)}, "
+                f"{float(numpy_vad['labels'].mean()):.3f} of the frames "
+                f"voiced): train_loss {losses[0]:.4f} -> {losses[-1]:.4f}")
             folded = vad_trainer.streaming_reshape(
                 numpy_vad, 8, np.random.default_rng(0))
             _, m = step(state, {k: torch.from_numpy(v).cuda()
@@ -3306,7 +2259,6 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
                 raise AssertionError("not the offline VAD")
             _, m_off = vad_trainer.make_vad_train_step(
                 offline, global_batch=VAD_B)(off_state, batch)
-            torch.cuda.synchronize()
             log(f"vad_punc_train: one step folded by streaming_reshape to "
                 f"x {list(folded['x'].shape)} (train_loss "
                 f"{float(m['train_loss']):.4f}), one OfflineVAD step "
@@ -3325,27 +2277,18 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
                     shapes["bert_features"] != (PUNC_B, PUNC_LEN, 768):
                 raise AssertionError(f"punctuation batch {shapes}")
             pstep = punc_trainer.make_punc_train_step(pmodel)
-            n_params = sum(p.numel() for p in pmodel.parameters())
             for with_feats in (True, False):
                 b = {k: torch.from_numpy(v).cuda()
                      for k, v in numpy_punc.items()
                      if with_feats or k != "bert_features"}
-                med, low, losses = timed_steps(pstep, pstate, b, steps)
+                losses = train_steps(pstep, pstate, b, steps)
                 log(f"vad_punc_train: PuncTransformer {pmodel.cfg.num_layers}"
-                    f" layers x d {pmodel.cfg.d_model} ({n_params} "
-                    f"parameters, {char_f.num_classes} ids, "
-                    f"{pdl.num_punc_classes} classes) f32 train step B="
+                    f" layers x d {pmodel.cfg.d_model} ({char_f.num_classes} "
+                    f"ids, {pdl.num_punc_classes} classes) f32 train step B="
                     f"{PUNC_B} x {PUNC_LEN} tokens "
                     f"{'with' if with_feats else 'without'} 768-d teacher "
-                    f"features, dropout {pmodel.cfg.dropout}: median "
-                    f"{med:.3f} ms (min {low:.3f}), "
-                    f"{PUNC_B * PUNC_LEN / med * 1e3:.0f} tokens/s; "
-                    f"train_loss {losses[0]:.4f} -> {losses[-1]:.4f} [{CARD}]")
-                if with_feats:
-                    trace(lambda: [pstep(pstate, b) for _ in range(steps)],
-                          steps, f"vad_punc_train: PuncTransformer train "
-                          f"step B={PUNC_B} x {PUNC_LEN} with teacher "
-                          f"features, back to back [{CARD}]", "step", 8)
+                    f"features, dropout {pmodel.cfg.dropout}: train_loss "
+                    f"{losses[0]:.4f} -> {losses[-1]:.4f}")
             # the card against the CPU at dropout 0 (its masks differ)
             quiet = UserConfig(paths["punc"], paths["punc"],
                                extra={"model_config": {"rate": 0.0}})
@@ -3355,28 +2298,25 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
 
             vad_args = ["--data_config", paths["vad_data"], "--model_config",
                         paths["vad_model"], "--device", "cuda"]
-            _, _, _, t_train = run_cli(train_vad.main,
-                                       vad_args + ["--total_steps", "4"])
+            run_cli(train_vad.main, vad_args + ["--total_steps", "4"])
             native = os.path.join(root, "vad_native")
-            got, out, err, t_eval = run_cli(
+            got, _, err = run_cli(
                 eval_vad.main, vad_args + ["--max_batches", "2",
                                            "--export_native", native])
             if "no VAD checkpoint" in err or set(got) != {"acc", "f1"} or \
                     not os.listdir(native):
                 raise AssertionError(f"cli.eval_vad: {got}, {err[-300:]}")
-            log(f"vad_punc_train: cli.train_vad 4 steps of B={VAD_B} in "
-                f"{t_train:.2f} s; cli.eval_vad restored step 4, wrote the "
-                f"native artifact ({sorted(os.listdir(native))}) and scored "
-                f"2 batches in {t_eval:.2f} s: {json.dumps(got)}")
+            log(f"vad_punc_train: cli.train_vad 4 steps of B={VAD_B}; "
+                f"cli.eval_vad restored step 4, wrote the native artifact "
+                f"({sorted(os.listdir(native))}) and scored 2 batches: "
+                f"{json.dumps(got)}")
             punc_args = ["--data_config", paths["punc"], "--model_config",
                          paths["punc"], "--device", "cuda"]
-            _, _, _, t_train = run_cli(
-                train_punc.main, punc_args + [
-                    "--total_steps", "4", "--bert_feature_dir",
-                    paths["features"]])
-            got, out, err, t_eval = run_cli(eval_punc.main,
-                                            punc_args + ["--max_batches",
-                                                         "2"])
+            run_cli(train_punc.main, punc_args + [
+                "--total_steps", "4", "--bert_feature_dir",
+                paths["features"]])
+            got, _, err = run_cli(eval_punc.main,
+                                  punc_args + ["--max_batches", "2"])
             if "no punctuation checkpoint" in err or \
                     set(got) != {"bd_acc", "bd_loss"}:
                 raise AssertionError(f"cli.eval_punc: {got}, {err[-300:]}")
@@ -3386,18 +2326,17 @@ def phase_vad_punc_train(steps: int = 10) -> tuple:
                     m["feature_map_loss"] > 0 for m in logged):
                 raise AssertionError(f"train_punc's metrics {logged}")
             log(f"vad_punc_train: cli.train_punc 4 steps of B={PUNC_B} with "
-                f"teacher features in {t_train:.2f} s (train_loss "
+                f"teacher features (train_loss "
                 f"{logged[0]['train_loss']:.3f} -> "
                 f"{logged[-1]['train_loss']:.3f}); cli.eval_punc restored "
-                f"step 4 and scored 2 batches in {t_eval:.2f} s: "
-                f"{json.dumps(got)}")
+                f"step 4 and scored 2 batches: {json.dumps(got)}")
 
         _, launches = counted(run)
     if launches != (0, 0):
         raise AssertionError(f"the VAD and punctuation path launched K1 and "
                              f"K1b {launches} times")
-    log(f"vad_punc_train: K1 and K1b launched 0 times (no kernel of the "
-        f"port is on this path); phase {time.perf_counter() - t_phase:.2f} s")
+    log("vad_punc_train: K1 and K1b launched 0 times (no kernel of the "
+        "port is on this path)")
     return launches
 
 
@@ -3437,14 +2376,14 @@ def block_trainer(data_yml: str, device: str, extra=None):
     return trainer
 
 
-def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
+def phase_block_stream(steps: int = 10) -> tuple:
     """The block-streaming ConformerCTC on the card: seeded full-width
     ``configs/Streaming_ConformerS.yml`` (dmodel 256, 4 blocks, 4 x 64
     heads, kernel 5) with ``configs/am_data.yml``, ``streaming: true``
     written into a temporary copy. ``predict_step`` in f32 at B = 128 x 7.2
-    s (15 chunks, folded to [1920, 7680] for K1b 'same'), median of 5, and
-    its stage split; f32 train steps at B = 128 x the loader's chunk-
-    quantised 8 s (17 chunks, input_length 204), a warm step and 10 timed;
+    s (15 chunks, folded to [1920, 7680] for K1b 'same'); f32 train steps
+    at B = 128 x the loader's chunk-quantised 8 s (17 chunks, input_length
+    204), a warm step and ``steps`` more;
     the encoder and one loss + backward on the card against the CPU on B =
     2 x 2 chunks; ``cli.train_asr`` -> ``cli.eval_am`` -> ``cli.test_asr``
     on ``write_corpus``'s corpus (test_asr's wav is a whole number of
@@ -3464,9 +2403,7 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         OfflineASRSession,
     )
     from tensorflowasr_tpu_torch.utils.audio import write_wav
-    from tensorflowasr_tpu_torch.utils.profiling import trace
 
-    t_phase = time.perf_counter()
     root_dir = os.path.dirname(os.path.abspath(__file__))
     dev = torch.device("cuda")
     launches = (0, 0)
@@ -3487,32 +2424,12 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         t_enc = BLOCK_CHUNKS * chunk // 640
         length = torch.full((BLOCK_B,), t_enc, dtype=torch.int32, device=dev)
 
-        def predict():
-            out = predict_step(model, wav, length)
-            torch.cuda.synchronize()
-            check_outputs(out, BLOCK_B, t_enc)
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                out = predict_step(model, wav, length)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            check_outputs(out, BLOCK_B, t_enc)
-            return times
-
-        times, n = counted(predict)
-        launches = add(launches, expect(n, reps + 1,
-                                        f"{reps + 1} block predict calls"))
-        step = statistics.median(times)
+        out, n = counted(lambda: predict_step(model, wav, length))
+        check_outputs(out, BLOCK_B, t_enc)
+        launches = add(launches, expect(n, 1, "a block predict call"))
         log(f"block_stream: predict_step f32 B={BLOCK_B} x {seconds} s "
             f"({BLOCK_CHUNKS} chunks of {chunk}, K1b on "
-            f"[{BLOCK_B * BLOCK_CHUNKS}, {chunk}]): median "
-            f"{step * 1e3:.3f} ms (min {min(times) * 1e3:.3f}), per-stream "
-            f"RTF {step / (BLOCK_B * seconds):.3e}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
-        log(f"block_stream: f32 stages (ms): "
-            f"{json.dumps(stage_breakdown(model, wav, length))} [{CARD}]")
-        predict_launches = n
+            f"[{BLOCK_B * BLOCK_CHUNKS}, {chunk}]): shapes and ids in range")
         del wav
 
         # training at the loader's chunk-quantised 8 s bucket
@@ -3520,27 +2437,16 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
                                   TRAIN_PHONES, TRAIN_CHARS)
         numpy_batch["input_length"][:] = BLOCK_TRAIN_CHUNKS * chunk // 640
         batch = trainer._prepare_batch(numpy_batch)
-        state = trainer.state
-        torch.cuda.reset_peak_memory_stats()
-        (med, low, losses), n = counted(
-            lambda: timed_steps(trainer.train_step, state, batch, steps))
+        losses, n = counted(lambda: train_steps(
+            trainer.train_step, trainer.state, batch, steps))
         launches = add(launches, expect(n, steps + 1,
                                         f"{steps + 1} block train steps"))
-        audio_s = TRAIN_B * BLOCK_TRAIN_CHUNKS * chunk / SR
         log(f"block_stream: train_step f32 B={TRAIN_B} x "
             f"{BLOCK_TRAIN_CHUNKS * chunk / SR} s ({BLOCK_TRAIN_CHUNKS} "
             f"chunks, input_length {BLOCK_TRAIN_CHUNKS * chunk // 640}), "
             f"{TRAIN_PHONES} phones, {TRAIN_CHARS} chars, dropout "
-            f"{cfg.dropout}: median {med:.3f} ms (min {low:.3f}; {steps} "
-            f"steps, each waited for), {audio_s / med * 1e3:.1f} audio s/s, "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-            f"GiB; train_loss {losses[0]:.4f} -> {losses[-1]:.4f} [{CARD}]")
-        log(f"block_stream: f32 train stages (ms): "
-            f"{json.dumps(train_stage_split(trainer, batch))} [{CARD}]")
-        trace(lambda: [trainer.train_step(state, batch) for _ in range(3)],
-              3, f"block_stream: train_step f32 B={TRAIN_B}, back to back "
-              f"[{CARD}]", "step", 8)
-        del trainer, state, batch, model
+            f"{cfg.dropout}: train_loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        del trainer, batch, model
         torch.cuda.empty_cache()
 
         # the card against the CPU, dropout 0, B = 2 x 2 chunks
@@ -3590,33 +2496,29 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         write_wav(wav_path, noise(16 * chunk, seed=22) * 3, SR)
 
         def clis():
-            t0 = time.perf_counter()
             run_cli(train_asr.main, common + ["--total_steps", "3",
                                               "--data_workers", "2",
                                               "--compute_dtype", "float32"])
-            t_train = time.perf_counter() - t0
-            scores, _, err, t_eval = run_cli(eval_am.main,
-                                             common + ["--max_batches", "2"])
+            scores, _, err = run_cli(eval_am.main,
+                                     common + ["--max_batches", "2"])
             if "no checkpoint found" in err:
                 raise AssertionError("cli.eval_am did not restore")
-            _, out, err, t_test = run_cli(test_asr.main, common + [
+            _, out, err = run_cli(test_asr.main, common + [
                 "--wav", wav_path, "--compute_dtype", "float32"])
             if "no checkpoint found" in err or "phones:" not in out:
                 raise AssertionError(f"cli.test_asr: {out[-300:]}")
-            return scores, out, t_train, t_eval, t_test
+            return scores
 
-        (scores, out, t_train, t_eval, t_test), n = counted(clis)
+        scores, n = counted(clis)
         launches = add(launches, expect(
             n, 3 + 2 + 2, "the block train_asr, eval_am and test_asr calls"))
         for key in ("phone_cer", "char_cer"):
             if not math.isfinite(scores[key]):
                 raise AssertionError(f"eval_am: {key} = {scores[key]}")
-        decoded = [line for line in out.splitlines()
-                   if line.startswith(("phones:", "audio"))]
-        log(f"block_stream: cli.train_asr 3 f32 steps of B={CLI_B} in "
-            f"{t_train:.2f} s; cli.eval_am restored step 3 and scored 2 "
-            f"batches in {t_eval:.2f} s: {json.dumps(scores)}; cli.test_asr "
-            f"on a 16-chunk wav in {t_test:.2f} s: {decoded[-1]}")
+        log(f"block_stream: cli.train_asr 3 f32 steps of B={CLI_B}; "
+            f"cli.eval_am restored step 3 and scored 2 batches: "
+            f"{json.dumps(scores)}; cli.test_asr restored it and decoded a "
+            f"16-chunk wav")
 
         # OfflineASRSession, one batched encode a file, against the folded
         # encode
@@ -3626,7 +2528,6 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         model = trainer.state.model.eval()
         asr = ASREngine(model, sample_rate=SR, text_featurizer=CharVocab())
         session = OfflineASRSession(asr)
-        session.transcribe_wav(noise(SR, seed=23))              # warm-up
         files = [noise(int(s * SR), seed=30 + i)
                  for i, s in enumerate(BLOCK_FILE_SECONDS)]
         pieces = sum(1 for w in files for s in range(0, len(w), chunk)
@@ -3634,17 +2535,13 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
         tap = Tap(asr, "encode_pieces")
 
         def requests():
-            walls = []
             for w in files:
-                t0 = time.perf_counter()
                 segments = session.transcribe_wav(w)
-                walls.append(time.perf_counter() - t0)
                 if len(segments) != 1 or not isinstance(
                         segments[0]["text"], str):
                     raise AssertionError(f"bad segments {segments}")
-            return walls
 
-        walls, n = counted(requests)
+        _, n = counted(requests)
         rows = tap.remove()                 # each file's pieces' rows
         encodes = len(files)
         launches = add(launches, expect(n, encodes,
@@ -3659,15 +2556,12 @@ def phase_block_stream(reps: int = 5, steps: int = 10) -> tuple:
             joined = torch.from_numpy(np.concatenate(used)).to(dev)
             worst = max(worst, within(joined, folded[:len(joined)], rtol=0,
                                       atol=1e-3))
-        log(f"block_stream: OfflineASRSession "
-            + ", ".join(f"{s} s {t * 1e3:.3f} ms" for s, t in
-                        zip(BLOCK_FILE_SECONDS, walls))
-            + f" ({pieces} chunks in {encodes} batched encodes); its "
+        log(f"block_stream: OfflineASRSession on {BLOCK_FILE_SECONDS} s "
+            f"files, {pieces} chunks in {encodes} batched encodes; its "
             f"encoder rows joined vs the folded encode of each padded file: "
-            f"max|err| {worst:.3e} [{CARD}]")
-    log(f"block_stream: K1 and K1b launched {launches}; phase "
-        f"{time.perf_counter() - t_phase:.2f} s")
-    return launches, predict_launches
+            f"max|err| {worst:.3e}")
+    log(f"block_stream: K1 and K1b launched {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3796,11 +2690,10 @@ def served_beam_request(client, wav: np.ndarray, host_lm, blank: int):
     ``ASREngine.decode`` does it: ``encode`` a chunk at a time, the rows
     padded to whole groups of 4 chunks, ``ctc_logits``, the beam with the
     LM on the CPU, the best beam padded with 10 zeros, ``translate``.
-    Returns (phones, char ids, the beam's output, encodes, wall s)."""
+    Returns (phones, char ids, the beam's output, encodes)."""
     from tensorflowasr_tpu_torch.ops.beam import ctc_beam_search_decode
     from tensorflowasr_tpu_torch.utils.ngram_lm import lm_pack
 
-    t0 = time.perf_counter()
     cs = int(client.call("info")[0][0])
     encs = [client.call("encode", wav[None, i:i + cs])[0]
             for i in range(0, len(wav), cs)]
@@ -3817,7 +2710,7 @@ def served_beam_request(client, wav: np.ndarray, host_lm, blank: int):
     padded = np.zeros((1, len(buf) + 10), np.int32)
     padded[0, :len(phones)] = phones
     chars = client.call("translate", padded, buf)[0].argmax(-1).tolist()
-    return phones, chars, beams, len(encs), time.perf_counter() - t0
+    return phones, chars, beams, len(encs)
 
 
 def read_chars(ids, stop: int) -> list:
@@ -3829,21 +2722,21 @@ def read_chars(ids, stop: int) -> list:
     return out
 
 
-def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
+def phase_beam_lm(cli_dir: str) -> tuple:
     """CTC prefix beam search with the n-gram LM fused on the card, on the
     cli phase's corpus and its calibrated ConformerCTC(S) checkpoint: (a) an
     order-3 phone LM by ``cli.train_lm`` on that corpus, and one over all
     231 phones from a seeded corpus; (b) the card's hash lanes and
     ``score_candidates`` against numpy; (c) ``make_beam_predict_step`` (W 8,
     K 16, the 231-phone LM at 0.3) at B = 128 x 7 s of gated tones beside
-    the greedy ``predict_step`` (median of 5 each, waited for), one trace
-    of each, one beam call with every implicit sync an error, and 8 rows
-    against the same step on the CPU; (d) ``cli.eval_am --lm`` on the card
-    and on the CPU, the same JSON; (e) ``cli.serve_model.build_ops --lm``
-    served on 127.0.0.1, an 8 s file decoded with the beam from the served
-    ops against the in-process beam ``ASREngine`` on the CPU; (f)
-    ``cli.train_asr --data_procs 2`` and ``0``, 3 steps each. K1b's
-    launches are counted exactly in (c)-(f). Returns them."""
+    the greedy ``predict_step``, one beam call with every implicit sync an
+    error, and 8 rows against the same step on the CPU; (d) ``cli.eval_am
+    --lm`` on the card and on the CPU, the same JSON; (e)
+    ``cli.serve_model.build_ops --lm`` served on 127.0.0.1, an 8 s file
+    decoded with the beam from the served ops against the in-process beam
+    ``ASREngine`` on the CPU; (f) ``cli.train_asr --data_procs 2`` and
+    ``0``, 3 steps each. K1b's launches are counted exactly in (c)-(f).
+    Returns them."""
     import yaml
 
     from tensorflowasr_tpu_torch.cli import (
@@ -3865,14 +2758,6 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     )
     from tensorflowasr_tpu_torch.utils.config import UserConfig
     from tensorflowasr_tpu_torch.utils.ngram_lm import NGramLM, lm_pack
-    from tensorflowasr_tpu_torch.utils.profiling import trace
-
-    laps = [time.perf_counter()]
-
-    def lap() -> str:
-        """Seconds since the previous lap, for the phase's log lines."""
-        laps.append(time.perf_counter())
-        return f"{laps[-1] - laps[-2]:.1f} s"
 
     root = os.path.dirname(os.path.abspath(__file__))
     model_yml = os.path.join(root, "configs", "conformerS.yml")
@@ -3882,7 +2767,7 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
 
     # (a) the LMs
     lm_npz = os.path.join(cli_dir, "lm_phone3.npz")
-    _, out, _, took = run_cli(train_lm.main, [
+    _, out, _ = run_cli(train_lm.main, [
         "--data_config", cli_data, "--unit", "phone", "--order", "3",
         "--output", lm_npz, "--eval_lists",
         os.path.join(cli_dir, "eval.list")])
@@ -3890,15 +2775,11 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     if (cli_lm.order, cli_lm.vocab_size) != (3, N_PHONE):
         raise AssertionError(f"cli.train_lm: order {cli_lm.order}, "
                              f"vocabulary {cli_lm.vocab_size}")
-    log(f"beam_lm: cli.train_lm in {took:.2f} s: "
-        + " / ".join(out.strip().splitlines()))
-    t0 = time.perf_counter()
+    log("beam_lm: cli.train_lm: " + " / ".join(out.strip().splitlines()))
     full_lm = full_vocab_lm()
-    log(f"beam_lm: order-3 LM over {N_PHONE} phones from a seeded corpus in "
-        f"{time.perf_counter() - t0:.2f} s (part (a) {lap()})")
 
     # (b) the hash lanes and the scores on the card
-    log(f"beam_lm: {check_lm_on_card(full_lm)} ({lap()})")
+    log(f"beam_lm: {check_lm_on_card(full_lm)}")
 
     # (c) make_beam_predict_step at full width on the calibrated checkpoint
     config = UserConfig(cli_data, model_yml)
@@ -3922,54 +2803,21 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     beam_step = make_beam_predict_step(model, blank, beam_width=BEAM_W,
                                        ngram_lm=dev_lm,
                                        lm_weight=BEAM_LM_WEIGHT)
-
-    def timed(step):
-        out = step(state, wav, length)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            out = step(state, wav, length)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+    for what, step in (("beam", beam_step), ("greedy", trainer.predict_step)):
+        out, n = counted(lambda: step(state, wav, length))
         check_outputs(out, BEAM_B, t_enc)
-        return out, times
-
-    (beam_out, beam_times), n = counted(lambda: timed(beam_step))
-    launches = add(launches, expect(n, reps + 1,
-                                    f"{reps + 1} beam predict calls"))
-    (greedy_out, greedy_times), n = counted(
-        lambda: timed(trainer.predict_step))
-    launches = add(launches, expect(n, reps + 1,
-                                    f"{reps + 1} greedy predict calls"))
-    beam_ms = statistics.median(beam_times) * 1e3
-    greedy_ms = statistics.median(greedy_times) * 1e3
+        launches = add(launches, expect(n, 1, f"a {what} predict call"))
+        if what == "beam":
+            beam_out = out
     lens = beam_out[1].cpu()
     if int((lens > 0).sum()) < BEAM_B // 2:
         raise AssertionError(f"the beam decoded {int((lens > 0).sum())} of "
                              f"{BEAM_B} rows to something")
-    same_as_greedy = sum(
-        beam_out[0][b, :int(lens[b])].tolist()
-        == greedy_out[0][b, :int(greedy_out[1][b])].tolist()
-        for b in range(BEAM_B))
     log(f"beam_lm: make_beam_predict_step f32 B={BEAM_B} x {BEAM_SECONDS} s "
         f"({t_enc} frames, W {BEAM_W}, K {BEAM_K}, order-3 LM over "
-        f"{N_PHONE} phones at {BEAM_LM_WEIGHT}): {spread_ms(beam_times)}; "
-        f"greedy predict_step {spread_ms(greedy_times)}; beam / greedy "
-        f"{beam_ms / greedy_ms:.1f}x; best beams "
-        f"{float(lens.float().mean()):.1f} phones a row on average, "
-        f"{same_as_greedy} of {BEAM_B} rows equal to greedy [{CARD}]")
-    busy = trace(lambda: beam_step(state, wav, length), 1,
-                 f"beam_lm: make_beam_predict_step B={BEAM_B} [{CARD}]",
-                 "call", 8)
-    plain = trace(lambda: trainer.predict_step(state, wav, length), 1,
-                  f"beam_lm: greedy predict_step B={BEAM_B} [{CARD}]",
-                  "call", 4)
-    extra = busy["launches"] - plain["launches"]
-    log(f"beam_lm: the beam adds {extra:.0f} kernels and copies a call, "
-        f"{extra / t_enc:.1f} a frame, "
-        f"{(busy['wall_ms'] - plain['wall_ms']) / t_enc * 1e3:.1f} us a frame "
-        f"by the host clock [{CARD}]")
+        f"{N_PHONE} phones at {BEAM_LM_WEIGHT}) and the greedy "
+        f"predict_step: shapes and ids in range, best beams "
+        f"{float(lens.float().mean()):.1f} phones a row on average")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4009,21 +2857,20 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     log(f"beam_lm: {rows} rows on the card vs the CPU (same checkpoint and "
         f"LM): {report}; make_beam_predict_step's phone ids equal in "
         f"{len(step_rows)} of {rows} rows (the card's at B={BEAM_B}), char "
-        f"ids in {chars_equal} (part (c) {lap()})")
+        f"ids in {chars_equal}")
     if set(range(rows)) - set(step_rows) - tied:
         raise AssertionError("make_beam_predict_step differs from the CPU "
                              "away from a near-tie")
-    del wav, beam_out, greedy_out, checked
+    del wav, out, beam_out, checked
     torch.cuda.empty_cache()
 
     # (d) cli.eval_am --lm on both devices
     common = ["--data_config", cli_data, "--model_config", model_yml,
               "--lm", lm_npz, "--max_batches", "2", "--log_level", "WARNING"]
-    (card_json, _, err, t_card), n = counted(
+    (card_json, _, err), n = counted(
         lambda: run_cli(eval_am.main, common + ["--device", "cuda"]))
     launches = add(launches, expect(n, 2, "eval_am --lm's 2 batches"))
-    cpu_json, _, cpu_err, t_cpu = run_cli(eval_am.main,
-                                          common + ["--device", "cpu"])
+    cpu_json, _, cpu_err = run_cli(eval_am.main, common + ["--device", "cpu"])
     if "no checkpoint found" in err + cpu_err:
         raise AssertionError("eval_am --lm did not restore the checkpoint")
     if card_json != cpu_json:
@@ -4032,8 +2879,7 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     if card_json["phone_D"] >= card_json["phone_N"]:
         raise AssertionError(f"eval_am --lm decoded nothing: {card_json}")
     log(f"beam_lm: cli.eval_am --lm {os.path.basename(lm_npz)}, 2 batches: "
-        f"the same JSON on the card ({t_card:.2f} s) and the CPU "
-        f"({t_cpu:.2f} s): {json.dumps(card_json)} ({lap()})")
+        f"the same JSON on the card and the CPU: {json.dumps(card_json)}")
 
     # (e) the beam over the socket against the in-process engine on the CPU
     args = serve_model.parser().parse_args([
@@ -4070,7 +2916,7 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     _, n = counted(serve)
     if failures:
         raise failures[0]
-    phones, chars, beams, encodes, wall = served["out"]
+    phones, chars, beams, encodes = served["out"]
     launches = add(launches, expect(n, encodes,
                                     f"{encodes} served encodes"))
     engine = ASREngine(cpu_model, sample_rate=SR, text_featurizer=CharVocab(),
@@ -4103,17 +2949,15 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
     if not phones:
         raise AssertionError("the served beam decoded no phone")
     log(f"beam_lm: cli.serve_model.build_ops --lm, an 8 s file over "
-        f"127.0.0.1 ({encodes} encodes, the beam on the host) in "
-        f"{wall * 1e3:.3f} ms, {len(phones)} phones, {len(text)} chars, "
-        f"against the in-process beam ASREngine on the CPU: {report} "
-        f"({lap()}) [{CARD}]")
+        f"127.0.0.1 ({encodes} encodes, the beam on the host), "
+        f"{len(phones)} phones, {len(text)} chars, against the in-process "
+        f"beam ASREngine on the CPU: {report}")
     del trainers, trainer, model, state, engine, ops
     torch.cuda.empty_cache()
 
     # (f) cli.train_asr with batches from worker processes
     with open(cli_data) as f:
         data = yaml.safe_load(f)
-    rates = {}
     for procs in (2, 0):
         d = dict(data, running_config=dict(
             data["running_config"], log_interval_steps=3,
@@ -4122,7 +2966,7 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
         d_yml = os.path.join(cli_dir, f"data_procs{procs}.yml")
         with open(d_yml, "w") as f:
             yaml.safe_dump(d, f)
-        (_, _, _, took), n = counted(lambda: run_cli(train_asr.main, [
+        _, n = counted(lambda: run_cli(train_asr.main, [
             "--data_config", d_yml, "--model_config", model_yml,
             "--device", "cuda", "--total_steps", "3", "--data_procs",
             str(procs), "--data_workers", "2", "--log_level", "WARNING"]))
@@ -4134,15 +2978,10 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
         if [m["step"] for m in logged] != [3] or \
                 not math.isfinite(logged[0]["train_loss"]):
             raise AssertionError(f"--data_procs {procs}: {logged}")
-        rates[procs] = (logged[0]["steps_per_s"], logged[0]["train_loss"],
-                        took)
-    log("beam_lm: cli.train_asr bf16, 3 steps of B=8: " + "; ".join(
-        f"--data_procs {p}: {r[0]:.3f} steps/s over steps 1-3, train_loss "
-        f"{r[1]:.3f}, {r[2]:.2f} s with start-up" for p, r in rates.items())
-        + f" (the workers hide the card from themselves and check that "
-        f"CUDA stayed uninitialised after every batch; {lap()}) [{CARD}]")
-    log(f"beam_lm: K1 and K1b launched {launches}; phase "
-        f"{laps[-1] - laps[0]:.2f} s")
+    log("beam_lm: cli.train_asr bf16, 3 steps of B=8 with --data_procs 2 "
+        "and 0: finite losses (the workers hide the card from themselves and "
+        "check that CUDA stayed uninitialised after every batch)")
+    log(f"beam_lm: K1 and K1b launched {launches}")
     return launches
 
 
@@ -4152,7 +2991,7 @@ def phase_beam_lm(cli_dir: str, reps: int = 5) -> tuple:
 
 OPTION_B, OPTION_SECONDS = 128, 7.0          # predict_step, as phase_serve
 OPTION_TRAIN_B = 32                          # x TRAIN_SECONDS (8 s)
-OPTION_TRAIN_STEPS = 3                       # a warm step and 2 timed
+OPTION_TRAIN_STEPS = 3                       # a warm step and 2 more
 EXPORT_CHUNKS = 10
 EXPORT_DECODER_STEP = 4                      # the picker's frames a chunk
 # a loaded program against the eager model it was exported from, on the
@@ -4169,63 +3008,6 @@ def option_trainer(option: dict, device: str, dropout: bool = True):
         extra["model_config"] = {"dropout": 0.0, "ctcdecoder_dropout": 0.0,
                                  "translator_dropout": 0.0}
     return new_trainer("float32", device, extra=extra)
-
-
-def predict_times(model, wav, length, reps: int) -> list:
-    """A checked warm ``predict_step``, then ``reps`` waited for (s)."""
-    from tensorflowasr_tpu_torch.serve.engines import predict_step
-
-    t_enc = -(-(-(-wav.shape[1] // 160)) // 4)
-    out = predict_step(model, wav, length)
-    torch.cuda.synchronize()
-    check_outputs(out, wav.shape[0], t_enc)
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        out = predict_step(model, wav, length)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    check_outputs(out, wav.shape[0], t_enc)
-    return times
-
-
-def module_shares(model, wav, length, modules: dict) -> dict:
-    """CUDA-event ms of each module in ``modules`` (name -> submodule)
-    inside one ``predict_step``, beside the step's own ms."""
-    from tensorflowasr_tpu_torch.serve.engines import predict_step
-
-    def event():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    spans, hooks = {}, []
-
-    def enter(name):
-        def hook(mod, args):
-            spans[name] = [event()]
-        return hook
-
-    def leave(name):
-        def hook(mod, args, out):
-            spans[name].append(event())
-        return hook
-
-    for name, m in modules.items():
-        hooks.append(m.register_forward_pre_hook(enter(name)))
-        hooks.append(m.register_forward_hook(leave(name)))
-    try:
-        start = event()
-        predict_step(model, wav, length)
-        end = event()
-        torch.cuda.synchronize()
-    finally:
-        for h in hooks:
-            h.remove()
-    out = {name: round(a.elapsed_time(b), 4) for name, (a, b) in
-           spans.items()}
-    out["predict_step"] = round(start.elapsed_time(end), 4)
-    return out
 
 
 def option_card_vs_cpu(option: dict, what: str) -> None:
@@ -4260,15 +3042,12 @@ def option_card_vs_cpu(option: dict, what: str) -> None:
                              "with the CPU")
 
 
-def option_part(option: dict, what: str, plain, reps: int) -> tuple:
-    """(a) / (b): ``predict_step`` f32 at B = 128 x 7 s, median of
-    ``reps``, in turns with the plain ConformerCTC(S) ``plain``; the
-    modules' share of one step; 3 train steps at B = 32 x 8 s; the card
-    against the CPU; with LEAF a trace of one predict and one train step.
-    Returns K1's and K1b's launches in the predict and train calls (one
-    each a call with ``add_wav_info``, none with LEAF)."""
+def option_part(option: dict, what: str) -> tuple:
+    """(a) / (b): ``predict_step`` f32 at B = 128 x 7 s; 3 train steps at
+    B = 32 x 8 s; the card against the CPU. Returns K1's and K1b's launches
+    in the predict and train calls (one each a call with ``add_wav_info``,
+    none with LEAF) and the number of calls."""
     from tensorflowasr_tpu_torch.serve.engines import predict_step
-    from tensorflowasr_tpu_torch.utils.profiling import trace
 
     dev = torch.device("cuda")
     trainer = option_trainer(option, "cuda")
@@ -4277,56 +3056,23 @@ def option_part(option: dict, what: str, plain, reps: int) -> tuple:
             getattr(cfg, k) != v for k, v in option.items()):
         raise AssertionError(f"not the full-width {what} config: {cfg}")
     wav, length = batch_inputs(OPTION_B, OPTION_SECONDS, dev)
-    torch.cuda.reset_peak_memory_stats()
-    plain_times = predict_times(plain, wav, length, reps)
-    times, n_pred = counted(lambda: predict_times(model, wav, length, reps))
-    plain_times += predict_times(plain, wav, length, reps)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    step, base = statistics.median(times), statistics.median(plain_times)
-    log(f"leaf_wav_export: {what} predict_step f32 B={OPTION_B} x "
-        f"{OPTION_SECONDS} s: median {step * 1e3:.3f} ms (min "
-        f"{min(times) * 1e3:.3f}) against the plain ConformerCTC(S)'s "
-        f"{base * 1e3:.3f} ms (min {min(plain_times) * 1e3:.3f}; {reps} "
-        f"calls before and {reps} after), {step / base:.2f}x; per-stream "
-        f"RTF {step / (OPTION_B * OPTION_SECONDS):.3e}; peak memory "
-        f"{peak:.2f} GiB [{CARD}]")
-    enc = model.encoder
-    modules = ({"wav_layer": enc.wav_layer} if enc.wav_layer is not None
-               else {"leaf": enc.mel_layer.leaf,
-                     "PCEN": enc.mel_layer.leaf.pcen})
-    shares = module_shares(model, wav, length, modules)
-    log(f"leaf_wav_export: {what} CUDA-event ms in one predict_step: "
-        f"{json.dumps(shares)}; "
-        + ", ".join(f"{name} {shares[name] / shares['predict_step']:.1%}"
-                    for name in modules) + f" of the step [{CARD}]")
-    leaf = enc.wav_layer is None
-    if leaf:
-        trace(lambda: predict_step(model, wav, length), 1,
-              f"leaf_wav_export: leaf predict_step f32 B={OPTION_B} x "
-              f"{OPTION_SECONDS} s [{CARD}]", "call", 6)
-    del wav, length
+    out, n_pred = counted(lambda: predict_step(model, wav, length))
+    check_outputs(out, OPTION_B, -(-(-(-wav.shape[1] // 160)) // 4))
+    del wav, length, out
 
     numpy_batch = train_batch(OPTION_TRAIN_B, TRAIN_SECONDS, TRAIN_PHONES,
                               TRAIN_CHARS)
     batch = trainer._prepare_batch(numpy_batch)
-    torch.cuda.reset_peak_memory_stats()
-    (med, low, losses), n_train = counted(lambda: timed_steps(
+    losses, n_train = counted(lambda: train_steps(
         trainer.train_step, trainer.state, batch, OPTION_TRAIN_STEPS - 1))
-    audio_s = OPTION_TRAIN_B * TRAIN_SECONDS
-    log(f"leaf_wav_export: {what} train_step f32 B={OPTION_TRAIN_B} x "
-        f"{TRAIN_SECONDS} s, dropout {cfg.dropout}: median {med:.3f} ms "
-        f"(min {low:.3f}; {OPTION_TRAIN_STEPS - 1} steps after a warm one, "
-        f"each waited for), {audio_s / med * 1e3:.1f} audio s/s, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"train_loss {' -> '.join(f'{v:.4f}' for v in losses)} [{CARD}]")
-    if leaf:
-        trace(lambda: trainer.train_step(trainer.state, batch), 1,
-              f"leaf_wav_export: leaf train_step f32 B={OPTION_TRAIN_B} x "
-              f"{TRAIN_SECONDS} s [{CARD}]", "step", 6)
+    log(f"leaf_wav_export: {what} predict_step f32 B={OPTION_B} x "
+        f"{OPTION_SECONDS} s: shapes and ids in range; train_step f32 "
+        f"B={OPTION_TRAIN_B} x {TRAIN_SECONDS} s, dropout {cfg.dropout}: "
+        f"train_loss {' -> '.join(f'{v:.4f}' for v in losses)}")
     del trainer, model, batch
     torch.cuda.empty_cache()
     option_card_vs_cpu(option, what)
-    return add(n_pred, n_train), reps + 1 + OPTION_TRAIN_STEPS
+    return add(n_pred, n_train), 1 + OPTION_TRAIN_STEPS
 
 
 def frontend_nodes(call) -> list:
@@ -4367,12 +3113,8 @@ def export_part(cli_dir: str, chunk_dir: str) -> tuple:
 
     # offline: encoder, ctc_model, translator at JAX's example shapes
     out_dir = os.path.join(cli_dir, "export_offline")
-    t0 = time.perf_counter()
     exporter.export_offline_asr(model, out_dir)          # B=1 x 7 s, U 64
-    t_export = time.perf_counter() - t0
-    t0 = time.perf_counter()
     graphs = exporter.load_exported(out_dir)
-    t_load = time.perf_counter() - t0
     nodes = {name: frontend_nodes(call) for name, call in graphs.items()}
     if nodes != {"encoder": ["tasr.log_mel_spectrogram.default"],
                  "ctc_model": [], "translator": []}:
@@ -4393,21 +3135,17 @@ def export_part(cli_dir: str, chunk_dir: str) -> tuple:
     errs = [within(torch.from_numpy(got), want.cpu(), **EXPORT_TOL)
             for got, want in zip((enc, logits, chars), live)]
     log(f"leaf_wav_export: export_offline_asr of the calibrated "
-        f"ConformerCTC(S) checkpoint on the card in {t_export:.2f} s, "
-        f"load_exported {t_load:.2f} s; the encoder graph holds "
+        f"ConformerCTC(S) checkpoint on the card, loaded back; the encoder "
+        f"graph holds "
         f"{nodes['encoder']}; loaded vs eager at B=1 x 7 s: max|err| "
         f"encoder {errs[0]:.3e}, ctc_model {errs[1]:.3e}, translator "
         f"{errs[2]:.3e}; K1 and K1b launched {n_enc} by one encoder call")
 
     # chunk: picker and decoder threaded over EXPORT_CHUNKS chunks
     out_dir = os.path.join(chunk_dir, "export_chunk")
-    t0 = time.perf_counter()
     exporter.export_chunk_streaming(cmodel, out_dir,
                                     decoder_step=EXPORT_DECODER_STEP)
-    t_export = time.perf_counter() - t0
-    t0 = time.perf_counter()
     graphs = exporter.load_exported(out_dir)
-    t_load = time.perf_counter() - t0
     with open(os.path.join(out_dir, "manifest.json")) as f:
         manifest = json.load(f)
     nodes = {name: frontend_nodes(call) for name, call in graphs.items()}
@@ -4465,8 +3203,8 @@ def export_part(cli_dir: str, chunk_dir: str) -> tuple:
             dworst = max(dworst, within(torch.from_numpy(got).float(),
                                         w.cpu().float(), **EXPORT_TOL))
     log(f"leaf_wav_export: export_chunk_streaming of the chunk train CLI's "
-        f"ChunkConformer(S) checkpoint on the card in {t_export:.2f} s, "
-        f"load_exported {t_load:.2f} s; the picker graph holds "
+        f"ChunkConformer(S) checkpoint on the card, loaded back; the picker "
+        f"graph holds "
         f"{nodes['picker']}; {EXPORT_CHUNKS} chunks threaded through the "
         f"loaded picker ({len(pk_keys)} caches) and decoder ({len(dec_keys)}"
         f" caches) vs eager: max|err| picker {worst:.3e} (logits, hidden, "
@@ -4476,10 +3214,8 @@ def export_part(cli_dir: str, chunk_dir: str) -> tuple:
 
 
 def rnnt_part() -> None:
-    """(d): ``rnnt_loss`` and its gradient on the card against the CPU, the
-    card's time a call (forward and backward) and one trace of it."""
+    """(d): ``rnnt_loss`` and its gradient on the card against the CPU."""
     from tensorflowasr_tpu_torch.ops.rnnt import rnnt_loss
-    from tensorflowasr_tpu_torch.utils.profiling import trace
 
     b, t, u, v = RNNT_SHAPE
     rng = np.random.default_rng(80)
@@ -4487,75 +3223,47 @@ def rnnt_part() -> None:
     labels = torch.from_numpy(rng.integers(1, v, (b, u)).astype(np.int64))
     t_lens = torch.tensor([200, 180, 150, 200, 120, 199, 60, 1])
     u_lens = torch.tensor([40, 35, 20, 40, 30, 39, 10, 0])
-    result, times = {}, []
+    result = {}
     for device in ("cuda", "cpu"):
-        for _ in range(4 if device == "cuda" else 1):
-            x = torch.from_numpy(logits).to(device).requires_grad_()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loss = rnnt_loss(x, labels.to(device), t_lens.to(device),
-                             u_lens.to(device))
-            loss.sum().backward()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        x = torch.from_numpy(logits).to(device).requires_grad_()
+        loss = rnnt_loss(x, labels.to(device), t_lens.to(device),
+                         u_lens.to(device))
+        loss.sum().backward()
         result[device] = (loss.detach().cpu(), x.grad.cpu())
     loss_err = within(result["cuda"][0], result["cpu"][0], rtol=1e-4,
                       atol=0)
     scale = float(result["cpu"][1].abs().max())
     grad_err = within(result["cuda"][1], result["cpu"][1], rtol=0,
                       atol=1e-4 * scale)
-    card = times[1:4]
-    x = torch.from_numpy(logits).to("cuda").requires_grad_()
-    args = [a.to("cuda") for a in (labels, t_lens, u_lens)]
-    trace(lambda: rnnt_loss(x, *args).sum().backward(), 1,
-          f"leaf_wav_export: rnnt_loss forward + backward [{CARD}]", "call",
-          4)
     log(f"leaf_wav_export: rnnt_loss [B, T, U+1, V] = [{b}, {t}, {u + 1}, "
         f"{v}] card vs CPU: loss max|err| {loss_err:.3e} (losses "
         f"{float(result['cpu'][0].min()):.2f}-"
         f"{float(result['cpu'][0].max()):.2f}, within 1e-4 relative), "
         f"gradient max|err| {grad_err:.3e} (within 1e-4 of its largest "
-        f"entry {scale:.3e}); forward + backward on the card median "
-        f"{statistics.median(card) * 1e3:.3f} ms (min {min(card) * 1e3:.3f};"
-        f" {t + u} anti-diagonals) [{CARD}]")
+        f"entry {scale:.3e})")
 
 
-def phase_leaf_wav_export(cli_dir: str, chunk_dir: str,
-                          reps: int = 5) -> tuple:
+def phase_leaf_wav_export(cli_dir: str, chunk_dir: str) -> tuple:
     """(a) ``add_wav_info: true`` and (b) ``mel_layer_type: leaf`` on the
     full-width ConformerCTC(S); (c) the offline and chunk export round trip
     on the card; (d) ``rnnt_loss``. K1 and K1b are counted exactly: once a
     predict, train and exported encoder or picker call with add_wav_info
     and in the exported graphs, never on the LEAF branch. Returns the
-    launches of (a) and (c), and those of the exported graphs alone."""
-    from tensorflowasr_tpu_torch.models.conformer import (
-        ConformerConfig,
-        build_model,
-    )
-
-    t_phase = time.perf_counter()
-    plain = build_model(ConformerConfig(), N_PHONE, N_CHAR, device="cuda",
-                        seed=0)
-    n, calls = option_part({"add_wav_info": True}, "add_wav_info", plain,
-                           reps)
+    launches of (a) and (c)."""
+    n, calls = option_part({"add_wav_info": True}, "add_wav_info")
     launches = expect(n, calls, f"{calls} add_wav_info predict and train "
                                 f"calls")
-    n, leaf_calls = option_part({"mel_layer_type": "leaf"}, "leaf", plain,
-                                reps)
+    n, leaf_calls = option_part({"mel_layer_type": "leaf"}, "leaf")
     if n != (0, 0):
         raise AssertionError(f"the LEAF branch launched K1 and K1b {n}")
-    del plain
-    torch.cuda.empty_cache()
     exported, calls = export_part(cli_dir, chunk_dir)
     expect(exported, calls, "the exported graphs' encoder and picker calls")
     rnnt_part()
     log(f"leaf_wav_export: K1 and K1b launched {add(launches, exported)} "
         f"({launches} with add_wav_info, {exported} in the loaded graphs, "
         f"(0, 0) in the LEAF branch's {leaf_calls} predict and train "
-        f"calls); phase {time.perf_counter() - t_phase:.2f} s")
-    return add(launches, exported), exported
+        f"calls)")
+    return add(launches, exported)
 
 
 # ---------------------------------------------------------------------------
@@ -4773,24 +3481,21 @@ def phase_parallel(work: str) -> tuple:
     at a global B=32 x 8 s for 3 steps, held to one process on the same 32
     rows from the same weights; (b) a (1 x 2) tensor-parallel SGD step of
     ConformerCTC(S) against one process; (c) ``cli.train_asr`` under
-    ``torchrun --nproc_per_node 2`` (gloo, cuda:0) on phase 7's kind of
+    ``torchrun --nproc_per_node 2`` (gloo, cuda:0) on phase 8's kind of
     corpus, then a one-process ``eval_am`` restoring its checkpoint; (d) one
     process at world size 1 on the default backend (NCCL) taking a step.
     Returns K1's and K1b's launches: the ranks' (each counts its own and
     sends them back), the one-process runs' and eval_am's."""
     from tensorflowasr_tpu_torch.cli import eval_am
     from tensorflowasr_tpu_torch.parallel import step_check
-    from tensorflowasr_tpu_torch.serve.bench_chunk import (
-        calibrate,
-        shipped_chunk_config,
-    )
-    from tensorflowasr_tpu_torch.train.bench_chunk_batch import (
+    from tensorflowasr_tpu_torch.testing import (
         CALIBRATION_ROWS,
         bench_wav,
+        calibrate,
+        shipped_config,
     )
     from tensorflowasr_tpu_torch.train.chunk_trainer import ChunkTrainer
 
-    t_phase = time.perf_counter()
     launches = (0, 0)
     numpy_batch = train_batch(PARALLEL_B, TRAIN_SECONDS, TRAIN_PHONES,
                               TRAIN_CHARS)
@@ -4803,8 +3508,8 @@ def phase_parallel(work: str) -> tuple:
 
     # new_chunk_trainer's model, its biases perturbed before the picker's
     # calibration
-    chunk = ChunkTrainer(shipped_chunk_config(), N_PHONE, N_CHAR,
-                         device="cuda", compute_dtype="float32")
+    chunk = ChunkTrainer(shipped_config("chunk_conformerS.yml"), N_PHONE,
+                         N_CHAR, device="cuda", compute_dtype="float32")
     chunk.init_state(seed=0)
     perturb_biases(chunk.state.model, 2)
     calibrate(chunk.state.model, training=True,
@@ -4838,9 +3543,6 @@ def phase_parallel(work: str) -> tuple:
     n = expect(rank_launches(ranks), 2 * PARALLEL_STEPS,
                "the ranks' ConformerCTC(S) steps")
     launches = add(launches, add(n, tuple(one["launches"])))
-    times = {"ctc": (statistics.median(
-        max(r["step_s"][i] for r in ranks)
-        for i in range(1, PARALLEL_STEPS)), one["step_s"][-1])}
     failed += hold_fault("BatchNorm moments over each rank's own rows",
                          "ctc", franks, one)
     launches = add(launches, expect(rank_launches(franks), 2,
@@ -4852,9 +3554,6 @@ def phase_parallel(work: str) -> tuple:
     n = expect(rank_launches(cranks), 2 * PARALLEL_STEPS,
                "the ranks' ChunkConformer(S) steps")
     launches = add(launches, add(n, tuple(cone["launches"])))
-    times["chunk"] = (statistics.median(
-        max(r["step_s"][i] for r in cranks)
-        for i in range(1, PARALLEL_STEPS)), cone["step_s"][-1])
 
     full = step_check.assemble(tranks)
     tp_loss = max(abs(r["metrics"][0]["train_loss"]
@@ -4903,7 +3602,6 @@ def phase_parallel(work: str) -> tuple:
     data_yml = write_corpus(cli_dir)
     root = os.path.dirname(os.path.abspath(__file__))
     model_yml = os.path.join(root, "configs", "conformerS.yml")
-    t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "2", "-m",
@@ -4912,7 +3610,6 @@ def phase_parallel(work: str) -> tuple:
          "--dist_backend", "gloo", "--total_steps", "6", "--data_workers",
          "2"], capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=root), cwd=cli_dir)
-    t_cli = time.perf_counter() - t0
     if run.returncode != 0:
         raise AssertionError(f"torchrun train_asr: rc {run.returncode}, "
                              f"stderr {run.stderr[-2000:]}")
@@ -4944,18 +3641,12 @@ def phase_parallel(work: str) -> tuple:
         raise AssertionError(f"eval_am after torchrun: {result}")
     launches = add(launches, expect(n, 2, "eval_am's 2 batches"))
     log(f"parallel: torchrun --nproc_per_node 2 cli.train_asr (gloo, both "
-        f"ranks on cuda:0, bf16, global B={CLI_B}) 6 steps in {t_cli:.2f} s "
-        f"(train_loss {logged[0]['train_loss']:.3f} -> "
-        f"{logged[-1]['train_loss']:.3f}, {logged[-1]['examples_per_s']:.1f} "
-        f"utterances/s), checkpoints {ckpts}; one-process eval_am restored "
-        f"step 6: {json.dumps(result)}")
-    for name, (two, alone) in times.items():
-        log(f"parallel: {name} f32 step at B={PARALLEL_B} x {TRAIN_SECONDS} s"
-            f": 2 ranks {two * 1e3:.3f} ms, one process {alone * 1e3:.3f} ms "
-            f"on {CARD}; the two ranks share one card, so this is not a "
-            f"scaling figure")
+        f"ranks on cuda:0, bf16, global B={CLI_B}) 6 steps (train_loss "
+        f"{logged[0]['train_loss']:.3f} -> {logged[-1]['train_loss']:.3f}), "
+        f"checkpoints {ckpts}; one-process eval_am restored step 6: "
+        f"{json.dumps(result)}")
     log(f"parallel: K1 and K1b launched {launches} (ranks' and one-process "
-        f"train steps, eval_am); phase {time.perf_counter() - t_phase:.2f} s")
+        f"train steps, eval_am)")
     return launches
 
 
@@ -5007,18 +3698,15 @@ def phase_headtohead_quick(work: str) -> tuple:
     Returns K1's and K1b's launches in the training and both evaluations."""
     from tensorflowasr_tpu_torch.recipes import headtohead
 
-    t_phase = time.perf_counter()
-
     def run():
         quick = headtohead.quick(work, "cuda")
-        t0 = time.perf_counter()
         cold = headtohead.evaluate(
             untrained_config(quick["data_yml"], quick["model_yml"],
                              os.path.join(work, "untrained")),
             quick["model_yml"], "cuda")
-        return quick, cold, time.perf_counter() - t0
+        return quick, cold
 
-    (quick, cold, t_cold), launches = counted(run)
+    (quick, cold), launches = counted(run)
     result = quick["result"]
     steps = int(headtohead.QUICK_RUN[headtohead.QUICK_RUN.index(
         "--total_steps") + 1])
@@ -5046,20 +3734,16 @@ def phase_headtohead_quick(work: str) -> tuple:
     # a train step and an eval batch each launch K1b once
     expect(launches, steps + 2 * -(-n_test // batch),
            "the quick run's train steps and both evaluations")
-    log(f"headtohead_quick: {CARD}; corpus + prepare "
-        f"{quick['corpus_s']:.2f} s, train_asr {steps} steps at B={batch} "
-        f"{quick['train_s']:.2f} s ({steps / quick['train_s']:.3f} steps/s "
-        f"with start-up; {logged[-1]['steps_per_s']:.3f} over the last "
-        f"100), train_loss {logged[0]['train_loss']:.3f} -> "
-        f"{logged[-1]['train_loss']:.3f}, eval_am {quick['eval_s']:.2f} s, "
-        f"parameters on {devices}")
+    log(f"headtohead_quick: train_asr {steps} steps at B={batch}, "
+        f"train_loss {logged[0]['train_loss']:.3f} -> "
+        f"{logged[-1]['train_loss']:.3f}, parameters on {devices}")
     log(f"headtohead_quick: phone CER {result['phone_cer']:.4f} (JAX "
         f"{JAX_QUICK_PHONE_CER}, bound {QUICK_PHONE_CER_MAX:.4f}), char CER "
         f"{result['char_cer']:.4f} (JAX {JAX_QUICK_CHAR_CER}, bound "
         f"{QUICK_CHAR_CER_MAX:.4f}): {json.dumps(result)}")
     log(f"headtohead_quick: untrained checkpoint phone CER "
-        f"{cold['phone_cer']:.4f}, char CER {cold['char_cer']:.4f} "
-        f"(eval_am {t_cold:.2f} s): {json.dumps(cold)}")
+        f"{cold['phone_cer']:.4f}, char CER {cold['char_cer']:.4f}: "
+        f"{json.dumps(cold)}")
     if not (result["phone_cer"] <= QUICK_PHONE_CER_MAX
             and result["char_cer"] <= QUICK_CHAR_CER_MAX):
         raise AssertionError("headtohead_quick: the trained model misses "
@@ -5068,16 +3752,15 @@ def phase_headtohead_quick(work: str) -> tuple:
             or cold["char_cer"] <= QUICK_CHAR_CER_MAX:
         raise AssertionError("headtohead_quick: the bounds do not reject "
                              "the untrained checkpoint")
-    log(f"headtohead_quick: K1 and K1b launched {launches}; phase "
-        f"{time.perf_counter() - t_phase:.2f} s")
+    log(f"headtohead_quick: K1 and K1b launched {launches}")
     return launches
 
 
 def main() -> int:
     name = phase_device()
     phase_build()
-    k1 = phase_kernel()
-    rel_attention = phase_rel_attention()
+    errors = phase_kernel()
+    ebranchformer, ra_launches = phase_ebranchformer()
     models, batched = phase_serve()
     requested = phase_requests(models["float32"])
     del models
@@ -5091,7 +3774,6 @@ def main() -> int:
         os.makedirs(chunk_dir)
         cli = phase_cli(cli_dir)
         torch.cuda.empty_cache()
-        k1_chunk = phase_chunk_kernel()
         models = chunk_models_logged()
         chunk = {"offline": phase_chunk_offline(models),
                  "stream": phase_chunk_stream(models),
@@ -5111,9 +3793,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_vad_punc_train()
         torch.cuda.empty_cache()
-        block, block_predict = phase_block_stream()
+        block = phase_block_stream()
         torch.cuda.empty_cache()
-        leaf_wav, exported = phase_leaf_wav_export(cli_dir, chunk_dir)
+        leaf_wav = phase_leaf_wav_export(cli_dir, chunk_dir)
         torch.cuda.empty_cache()
         parallel_dir = os.path.join(work, "parallel")
         os.makedirs(parallel_dir)
@@ -5122,7 +3804,8 @@ def main() -> int:
         quick_dir = os.path.join(work, "headtohead")
         os.makedirs(quick_dir)
         quick = phase_headtohead_quick(quick_dir)
-    phases = {"predict_step calls": batched, "session's requests": requested,
+    phases = {"E-Branchformer (L) predict_step calls": ebranchformer,
+              "predict_step calls": batched, "session's requests": requested,
               "train steps": trained, "train_asr and eval_am CLI calls": cli,
               "chunk predict calls": chunk["offline"],
               "one-stream chunk steps": chunk["stream"],
@@ -5149,70 +3832,30 @@ def main() -> int:
         launches = add(launches, n)
     log(f"launches on the main path: K1 {launches[0]}, K1b {launches[1]} ("
         + ", ".join(f"{n[0]} and {n[1]} in the {what}"
-                    for what, n in phases.items()) + ")")
+                    for what, n in phases.items())
+        + f"), RA {ra_launches} (in the E-Branchformer (L) predict_step "
+        f"calls)")
     if min(min(n) for n in phases.values()) == 0:
         raise AssertionError("the main path did not launch K1 and K1b in "
                              "every phase")
-
-    entry = {
-        "name": "power_spectrogram", "route": "cuda",
-        "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
-        "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:77",
-        # every launch of the FFT kernel, in any epilogue: on the main path
-        # each is K1b's FFT pass (kPowerMax for 'same', the fused kLogMel
-        # for 'valid'), while ms is that of K1's own power-only launch
-        "launches": launches[0],
-        "launches_are": "the FFT pass of each K1b call (power and row max "
-                        "for 'same', the fused log-mel for 'valid'); ms, "
-                        "plain_ms and bound_ms are K1's power-only launch",
-        "max_abs_err": max(k1["max_abs_err"], k1_chunk["max_abs_err"]),
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        # the numbers above are the batched serving shape's (B=128 x 7 s)
-        "batch": k1["batch"], "samples": k1["samples"],
-        "request_shape": k1["request_shape"],
-        "train_shape": k1["train_shape"],
-        "cli_shapes": k1["cli_shapes"],
-        # 'valid' on the chunk path; launches are those of the phase
-        "valid_shapes": {key: dict(k1_chunk[key], launches=chunk[key][0])
-                         for key in CHUNK_K1_SHAPES},
-        "valid_train_cli_shapes": {"shapes": k1_chunk["train_cli"],
-                                   "launches": chunk["train_cli"][0]},
-        # through the tasr:: ops of programs saved by torch.export and
-        # loaded back: one exported encoder call and the picker's chunks
-        "exported_graph_launches": exported[0],
-    }
-    serve = k1["log_mel"]["serve"]
-    log_mel = {
-        "name": "log_mel_spectrogram", "route": "cuda",
-        "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
-        "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:136",
-        # one a log-mel computed
-        "launches": launches[1],
-        "max_abs_err": max(k1["log_mel_max_abs_err"],
-                           k1_chunk["log_mel_max_abs_err"]),
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-        # banded: the work the shipped basis needs (dense_bound_ms beside)
-        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-        "library_ms": serve["library_ms"],
-        # the numbers above are 'same' at B=128 x 7 s
-        "batch": serve["batch"], "samples": serve["samples"],
-        "dense_bound_ms": serve["dense_bound_ms"],
-        "replaced_ms": serve["replaced_ms"],
-        "same_shapes": {key: k1["log_mel"][key]
-                        for key in ("train", "request")},
-        # the block-streaming fold; launches are its predict_step calls
-        "block_stream_shape": dict(k1["log_mel"]["block_stream"],
-                                   launches=block_predict[1]),
-        # B=128 x 7 s with a given (trainable) matrix: K1 + dense_mel_kernel
-        "given_matrix": k1["log_mel"]["given_matrix"],
-        "valid_shapes": {key: dict(k1_chunk["log_mel"][key],
-                                   launches=chunk[key][1])
-                         for key in k1_chunk["log_mel"]},
-        "exported_graph_launches": exported[1],
-    }
-    log(json.dumps({"kernels": [entry, log_mel, rel_attention]}))
+    log(json.dumps({"kernels": [
+        {"name": "power_spectrogram", "route": "cuda",
+         "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
+         "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:77",
+         # every launch of the FFT kernel: on the main path each is K1b's
+         # FFT pass
+         "launches": launches[0], "max_abs_err": errors["k1"]},
+        {"name": "log_mel_spectrogram", "route": "cuda",
+         "source": "tensorflowasr_tpu_torch/csrc/power_spectrogram.cu",
+         "replaces": "tensorflowasr_tpu/ops/pallas_frontend.py:136",
+         "launches": launches[1], "max_abs_err": errors["k1b"],
+         # the given matrix's gradient, over its largest entry
+         "grad_max_rel_err": errors["k1b_grad"]},
+        {"name": "rel_attention", "route": "triton",
+         "source": "tensorflowasr_tpu_torch/ops/rel_attention.py",
+         # the JAX package has no E-Branchformer
+         "replaces": None, "launches": ra_launches,
+         "max_abs_err": errors["ra"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

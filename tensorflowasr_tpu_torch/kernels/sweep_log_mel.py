@@ -27,10 +27,13 @@ KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
 
 
 def main() -> int:
-    from tensorflowasr_tpu_torch.kernels.timing import cuda_times, graph_times
+    from tensorflowasr_tpu_torch.kernels.timing import (
+        card_line,
+        cuda_times,
+        graph_times,
+    )
     from tensorflowasr_tpu_torch.ops import frontend as fe
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
-    from tensorflowasr_tpu_torch.utils.profiling import card_line
 
     card_line()
     dev = torch.device("cuda")

@@ -26,10 +26,9 @@ REPS, INNER = 30, 10
 
 
 def main() -> int:
-    from tensorflowasr_tpu_torch.kernels.timing import graph_times
+    from tensorflowasr_tpu_torch.kernels.timing import card_line, graph_times
     from tensorflowasr_tpu_torch.ops import frontend as fe
     from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
-    from tensorflowasr_tpu_torch.utils.profiling import card_line
 
     card_line()
     dev = torch.device("cuda")

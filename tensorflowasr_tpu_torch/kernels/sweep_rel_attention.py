@@ -76,9 +76,8 @@ def bound(q: torch.Tensor, bd: torch.Tensor) -> dict:
 
 
 def main() -> int:
-    from tensorflowasr_tpu_torch.kernels.timing import cuda_times
+    from tensorflowasr_tpu_torch.kernels.timing import card_line, cuda_times
     from tensorflowasr_tpu_torch.ops import rel_attention as ra
-    from tensorflowasr_tpu_torch.utils.profiling import card_line
 
     card_line()
 

@@ -1,12 +1,30 @@
-"""CUDA-event timing of a callable on the card, for ``chip_smoke.py`` and
-the kernel sweeps. Each returns the median, the minimum and the spread
-(largest minus smallest sample) in ms."""
+"""The card line and CUDA-event timing of a callable on the card, for the
+kernel sweeps and ``serve/bench_ebf_buckets.py``. Each timer returns the
+median, the minimum and the spread (largest minus smallest sample) in
+ms."""
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 
 import torch
+
+
+def card_line() -> str:
+    """Turns TF32 off and prints the card's name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit`` gives them. Raises without
+    CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("this script needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    return line
 
 
 def cuda_times(fn, reps: int, inner: int, warmup: int = 3) -> dict:

@@ -439,21 +439,21 @@ def vad_punc_engines(streaming_pair):
     from tensorflowasr_tpu_torch.models import punc as tpunc
     from tensorflowasr_tpu_torch.models import vad as tvad
     from tensorflowasr_tpu_torch.models.layers import init_weights_
-    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+    from tensorflowasr_tpu_torch import testing as synth
     from tensorflowasr_tpu_torch.serve import engines as teng
 
     jmodel, variables, tmodel = streaming_pair
-    stream = bvp.tone_bursts(bvp.STREAM_PATTERN, seed=1)
+    stream = synth.tone_bursts(synth.STREAM_PATTERN, seed=1)
     vad = tvad.OnlineVAD()
     init_weights_(vad, torch.Generator().manual_seed(5))
-    assert bvp.calibrate_vad(vad, stream) > 1.0
+    assert synth.calibrate_vad(vad, stream) > 1.0
     punc = tpunc.PuncTransformer(tpunc.PuncConfig(), len(PuncVocab.tokens),
-                                 2 + len(bvp.PUNC_TOKENS))
+                                 2 + len(synth.PUNC_TOKENS))
     init_weights_(punc, torch.Generator().manual_seed(4))
     ids = np.random.default_rng(5).integers(3, len(PuncVocab.tokens),
                                             (8, 64))
     ids[:, 0], ids[:, -1] = 1, 2
-    bvp.calibrate_punc(punc, ids, THRESHOLD)
+    synth.calibrate_punc(punc, ids, THRESHOLD)
     vocab = Vocab(N_CHAR)
     jax_side = dict(
         asr=JASREngine(jmodel, variables, chunk_seconds=0.5, sample_rate=SR,
@@ -463,13 +463,13 @@ def vad_punc_engines(streaming_pair):
                            frame_input=80),
         punc=jeng.PuncEngine(jpunc.PuncTransformer(
             jpunc.PuncConfig(), len(PuncVocab.tokens),
-            2 + len(bvp.PUNC_TOKENS)), nested(convert.to_flax_names(punc)),
-            PuncVocab(), bvp.PUNC_TOKENS, threshold=THRESHOLD))
+            2 + len(synth.PUNC_TOKENS)), nested(convert.to_flax_names(punc)),
+            PuncVocab(), synth.PUNC_TOKENS, threshold=THRESHOLD))
     port_side = dict(
         asr=ASREngine(tmodel, chunk_seconds=0.5, sample_rate=SR,
                       text_featurizer=vocab),
         vad=teng.VADEngine(vad, device="cpu"),
-        punc=teng.PuncEngine(punc, PuncVocab(), bvp.PUNC_TOKENS,
+        punc=teng.PuncEngine(punc, PuncVocab(), synth.PUNC_TOKENS,
                              threshold=THRESHOLD, device="cpu"))
     return jax_side, port_side, stream
 
@@ -483,7 +483,7 @@ def test_sessions_with_vad_over_the_streaming_model_match_jax(
     from tensorflowasr_tpu.serve.stream_session import (
         StreamASRSession as JStreamASRSession,
     )
-    from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+    from tensorflowasr_tpu_torch import testing as synth
     from tensorflowasr_tpu_torch.serve.stream_session import (
         StreamASRSession,
     )
@@ -494,10 +494,10 @@ def test_sessions_with_vad_over_the_streaming_model_match_jax(
     assert got == want
     types = [e["event_type"] for e in got]
     assert types.count("sentence begin") == types.count("sentence end") == 2
-    wav = bvp.tone_bursts(bvp.file_pattern(5.0), seed=12)
+    wav = synth.tone_bursts(synth.file_pattern(5.0), seed=12)
     want = JOfflineASRSession(jax_side["asr"], jax_side["vad"],
                               jax_side["punc"]).transcribe_wav(wav)
     got = OfflineASRSession(port_side["asr"], port_side["vad"],
                             port_side["punc"]).transcribe_wav(wav)
     assert got == want
-    assert len(got) == sum(loud for _, loud in bvp.file_pattern(5.0))
+    assert len(got) == sum(loud for _, loud in synth.file_pattern(5.0))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``tensorflowasr_tpu_torch``
 and not ``chip_smoke.py`` imports JAX, flax, optax, orbax or the JAX
 package. Checked on the source (an AST walk), since this test process has
-imported JAX already. Every module also imports on a CPU-only host."""
+imported JAX already. Every module also imports on a CPU-only host, and
+each part of the package imports only the parts its layer may."""
 
 import ast
 import importlib
@@ -50,3 +51,72 @@ def test_every_port_module_imports_without_a_card():
         rel = path.relative_to(ROOT).with_suffix("")
         name = ".".join(p for p in rel.parts if p != "__init__")
         importlib.import_module(name)
+
+
+# The parts of the package each part may import, from the bottom up: utils;
+# ops and kernels (the kernels' sweeps time the ops); models; parallel;
+# train; serve, export, data and eval; cli and recipes; testing.py over all
+# of them, imported by no program module. Arrows against that order are
+# debts (ROADMAP.md): models -> parallel (the mesh) beside parallel ->
+# models, parallel -> train (the step check), and the two single files of
+# FILE_ARROWS.
+LAYERS = {
+    "utils": set(),
+    "kernels": {"ops"},
+    "ops": {"kernels", "utils"},
+    "models": {"ops", "parallel", "utils"},
+    "parallel": {"models", "ops", "train", "utils"},
+    "train": {"models", "ops", "parallel", "utils"},
+    "serve": {"kernels", "models", "ops", "utils"},
+    "export": {"models", "ops"},
+    "data": {"utils"},
+    "eval": {"utils"},
+    "cli": {"data", "eval", "export", "models", "parallel", "serve",
+            "train", "utils"},
+    "recipes": {"cli", "utils"},
+    "testing": {"models", "serve", "train", "utils"},
+}
+FILE_ARROWS = {
+    # make_predict_step, which the benchmark imports from train
+    "train/asr_trainer.py": {"serve"},
+    # a timing script on the test fixtures' model and batches
+    "serve/bench_ebf_buckets.py": {"testing"},
+}
+
+
+def part_of(path):
+    rel = path.relative_to(PORT)
+    return rel.parts[0] if len(rel.parts) > 1 else rel.stem
+
+
+def imported_parts(path):
+    """The parts of the package that ``path`` imports (``from
+    tensorflowasr_tpu_torch import testing`` is the part ``testing``)."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module] if node.module != PORT.name else [
+                f"{PORT.name}.{alias.name}" for alias in node.names]
+        for name in names:
+            parts = name.split(".")
+            if parts[0] == PORT.name and len(parts) > 1:
+                yield parts[1]
+
+
+def test_every_part_of_the_package_has_a_layer():
+    found = {part_of(p) for p in PORT.rglob("*.py")} - {"__init__"}
+    assert found == set(LAYERS)
+
+
+@pytest.mark.parametrize("part", sorted(LAYERS))
+def test_a_part_imports_only_what_its_layer_may(part):
+    for path in sorted(PORT.rglob("*.py")):
+        if part_of(path) != part:
+            continue
+        rel = str(path.relative_to(PORT))
+        allowed = LAYERS[part] | {part} | FILE_ARROWS.get(rel, set())
+        bad = set(imported_parts(path)) - allowed
+        assert not bad, f"{rel} imports {sorted(bad)}"

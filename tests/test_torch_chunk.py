@@ -26,7 +26,7 @@ from tensorflowasr_tpu_torch.models import chunk_conformer as tcc
 from tensorflowasr_tpu_torch.models import convert
 # gated two-tone segments at three loudness levels: frames that differ
 # enough for a random-weight model to tell apart
-from tensorflowasr_tpu_torch.serve.bench_chunk import tones as speech
+from tensorflowasr_tpu_torch.testing import tones as speech
 from tensorflowasr_tpu_torch.train.chunk_trainer import (
     make_chunk_predict_step,
 )

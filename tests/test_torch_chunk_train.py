@@ -48,7 +48,7 @@ from tensorflowasr_tpu_torch.models import chunk_conformer as tcc
 from tensorflowasr_tpu_torch.models import convert
 from tensorflowasr_tpu_torch.models.layers import BatchNorm, set_generator
 from tensorflowasr_tpu_torch.ops import specaug as tspec
-from tensorflowasr_tpu_torch.serve.bench_chunk import tones
+from tensorflowasr_tpu_torch.testing import tones
 from tensorflowasr_tpu_torch.train import chunk_trainer as tct
 from tensorflowasr_tpu_torch.train import state as tstate
 from tensorflowasr_tpu_torch.utils.audio import write_wav
@@ -867,43 +867,3 @@ def test_chunk_eval_cli_scores_in_f32_as_jax(tmp_path, capsys, monkeypatch):
     want = json.loads(captured.out.strip().splitlines()[-1])
     assert got == want
     assert got["phone_N"] > 0 and got["char_N"] > 0
-
-
-def test_chunk_bench_batch_and_trainer():
-    """The batch and the trainer the card's chunk train step is timed on:
-    shapes, ranges, the seed, the full-width shipped config, and a
-    calibration that picks part of the frames in training mode."""
-    from tensorflowasr_tpu_torch.train import bench_chunk_batch as bcb
-    from tensorflowasr_tpu_torch.train.bench_batch import N_CHAR as VC
-    from tensorflowasr_tpu_torch.train.bench_batch import N_PHONE as VP
-
-    batch = bcb.chunk_train_batch(b=2, seconds=0.64, n_phones=6, n_chars=4,
-                                  n_extra_phones=5, n_extra_chars=3)
-    assert batch["wav"].shape == (2, 10240)
-    assert batch["input_length"].tolist() == [16, 16]
-    assert [batch[k].shape[1] for k in ("phones", "chars", "extra_phones",
-                                        "extra_chars")] == [6, 4, 5, 3]
-    for key, top in (("phones", VP - 1), ("extra_phones", VP - 1),
-                     ("chars", VC - 1), ("extra_chars", VC - 1)):
-        assert 1 <= batch[key].min() and batch[key].max() < top, key
-        assert (batch[key[:-1] + "_length"] == batch[key].shape[1]).all()
-    again = bcb.chunk_train_batch(b=2, seconds=0.64, n_phones=6, n_chars=4,
-                                  n_extra_phones=5, n_extra_chars=3)
-    assert all(np.array_equal(batch[k], again[k]) for k in batch)
-    with pytest.raises(ValueError, match="whole"):
-        bcb.chunk_train_batch(b=1, seconds=1.0)
-    trainer = bcb.new_chunk_trainer("float32", "cpu")
-    cfg = trainer.model_cfg
-    assert (cfg.dmodel, cfg.encoder.num_blocks, cfg.decoder.win_back,
-            trainer.max_pick, trainer.txt_ctc_length,
-            trainer.loss_reduction) == (144, 15, 8, None, "padded", "sum")
-    # calibrated in training mode on the batch's first rows, without
-    # moving the BatchNorm running statistics
-    model = trainer.state.model
-    assert not any(float(v.abs().max()) for k, v in buffers(model).items()
-                   if k.endswith("running_mean"))
-    with torch.no_grad():
-        logits, _ = model.train().encode_to_phones(
-            t_(bcb.bench_wav(bcb.CALIBRATION_ROWS, bcb.TRAIN_SECONDS)))
-    share = float((logits.argmax(-1) != VP - 1).float().mean())
-    assert 0.4 <= share <= 0.6, share

@@ -11,26 +11,24 @@ import numpy as np
 import pytest
 import torch
 
+from tensorflowasr_tpu_torch import testing
 from tensorflowasr_tpu_torch.kernels import sweep_rel_attention as ra_sweep
 from tensorflowasr_tpu_torch.models import layers
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops import log_mel_spectrogram as k1b
 from tensorflowasr_tpu_torch.ops import power_spectrogram as k1
 from tensorflowasr_tpu_torch.ops import rel_attention as ra
+from tensorflowasr_tpu_torch.testing import (
+    KERNEL_LOGMEL_TOL,
+    MAIN_PATH,
+    POWER_TOL,
+)
 from tensorflowasr_tpu_torch.utils import telemetry
 
-# the Pallas kernel's own tolerance (tests/test_pallas_frontend.py)
-POWER_TOL = dict(rtol=2e-4, atol=2e-3)
-# K1b against its plain version on one card, both in f32: the kernels' FFT
-# and the plain DFT round differently (8.0e-5 seen at most on an H100), and
-# a bulk 'valid' log-mel of this noise is about 0.02, so atol stays under
-# 3 % of it; the Pallas kernel's 1e-3 / 5e-2 is for JAX against the port
-KERNEL_LOGMEL_TOL = dict(rtol=1e-4, atol=5e-4)
-
-# K1's shapes (test_kernel_matches_plain_on_card), each in both paddings
+# K1b's shapes, each in both paddings
 SHAPES = [(8, 7 * 16000, 16000), (16, 2560 * 3, 16000), (3, 32077, 16000),
           (1, 7680, 16000), (2, 100, 16000), (4, 8000, 8000),
-          (4, 4011, 8000)]
+          (4, 4011, 8000), *((b, t, 16000) for b, t in MAIN_PATH)]
 
 
 def _card():
@@ -54,6 +52,8 @@ def _noise(shape, seed):
     ("valid", 2, 100, 16000),
     ("same", 4, 8000, 8000),         # hop 80, the 8 kHz VAD frontend
     ("valid", 4, 4011, 8000),
+    *((padding, b, t, 16000) for b, t in MAIN_PATH
+      for padding in ("same", "valid")),
 ])
 def test_kernel_matches_plain_on_card(padding, b, t, sample_rate):
     if not torch.cuda.is_available():
@@ -156,20 +156,24 @@ def test_dense_mel_kernel_matches_plain_on_card(padding, b, t, n_mels):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("padding", ["same", "valid"])
-def test_log_mel_kernel_with_given_weights_and_backward_on_card(padding):
+@pytest.mark.parametrize("b,t", [(4, 3 * 16000 + 77), (8, 2 * 16000),
+                                 (8, 4 * 16000)])
+def test_log_mel_kernel_with_given_weights_and_backward_on_card(padding, b,
+                                                                t):
     """A trainable mel matrix (K1, then the dense product): the forward
     against the plain version, and the gradient of the autograd function
     against the plain version's autograd, within 1e-4 of its largest entry
     (both take the dB of a power computed two ways, K1 and the plain DFT,
-    and the near-silent bins' logs carry their rounding)."""
+    and the near-silent bins' logs carry their rounding); also at the
+    CLI's buckets, B = 8 x 2 s and 4 s."""
     _card()
     cfg = fe.LogMelFrontendConfig(padding=padding)
-    wav = _noise((4, 3 * 16000 + 77), seed=21)
+    wav = _noise((b, t), seed=21)
     fb = fe._frontend_constants(cfg)[1]
     w0 = torch.from_numpy(fb + np.random.default_rng(22).uniform(
         0, 2e-3, fb.shape).astype(np.float32)).cuda()
     n_frames = -(-wav.shape[1] // cfg.hop)
-    cot = _noise((4, n_frames, cfg.n_mels), seed=23)
+    cot = _noise((b, n_frames, cfg.n_mels), seed=23)
     grads = []
     for fn in (fe.log_mel_spectrogram, fe.log_mel_spectrogram_reference):
         w = w0.clone().requires_grad_()
@@ -319,3 +323,34 @@ def test_rel_attention_module_takes_the_kernel_on_card():
         mods[torch.float32].cuda()(x, pos, mask)
     assert ra.rel_attention_cuda.launches == before + 1
     telemetry.reset()
+
+
+@pytest.fixture(scope="module")
+def ebranchformer_l():
+    """The full-width bf16 E-Branchformer (L) with seeded weights, built
+    once for the decode buckets."""
+    _card()
+    model = testing.ebranchformer_l()
+    yield model
+    del model
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", testing.EBF_BUCKETS)
+def test_ebranchformer_predict_step_launches_the_kernel_once_a_block(
+        ebranchformer_l, seconds):
+    """The decode cell's predict step at each bucket (B = 32, ragged key
+    masks) takes RA in every one of its 17 blocks, once a block, and
+    decodes ids in range."""
+    blocks = len(ebranchformer_l.encoder.blocks)
+    wav, lengths = testing.ebf_batch(seconds, seed=seconds)
+    before = ra.rel_attention_cuda.launches
+    phone_ids, phone_lens, char_ids = testing.ebf_decode(ebranchformer_l,
+                                                         wav, lengths)
+    assert ra.rel_attention_cuda.launches - before == blocks == 17
+    assert phone_ids.shape[0] == testing.EBF_B
+    assert len(phone_lens) == testing.EBF_B
+    assert 0 <= int(phone_ids.min())
+    assert int(phone_ids.max()) < testing.N_PHONE
+    assert 0 <= int(char_ids.min()) and int(char_ids.max()) < testing.N_CHAR

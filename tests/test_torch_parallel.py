@@ -63,7 +63,7 @@ from tensorflowasr_tpu_torch.models.layers import BatchNorm
 from tensorflowasr_tpu_torch.parallel import mesh as tmesh
 from tensorflowasr_tpu_torch.parallel import multihost, step_check
 from tensorflowasr_tpu_torch.parallel import tp as ttp
-from tensorflowasr_tpu_torch.serve.bench_chunk import tones
+from tensorflowasr_tpu_torch.testing import tones
 from tensorflowasr_tpu_torch.train.asr_trainer import CTCTrainer
 
 torch.set_num_threads(2)

@@ -8,10 +8,10 @@ the VAD configs and ``cli.test_punc``.
 
 The VAD (``configs/vad_model.yml`` width) and the punctuation model
 (``configs/punc_settings.yml`` width) are seeded random inits with their
-last layer calibrated (``serve/bench_vad_punc.py``), so that tone bursts
-are voiced, gaps silent and some punctuation is inserted; every decision
-both sides take is checked for a near-tie, and the events and texts must
-vary."""
+last layer calibrated (``tensorflowasr_tpu_torch/testing.py``), so that
+tone bursts are voiced, gaps silent and some punctuation is inserted; every
+decision both sides take is checked for a near-tie, and the events and
+texts must vary."""
 
 import uuid
 
@@ -37,7 +37,7 @@ from tensorflowasr_tpu_torch.models import convert
 from tensorflowasr_tpu_torch.models import punc as tpunc
 from tensorflowasr_tpu_torch.models import vad as tvad
 from tensorflowasr_tpu_torch.models.layers import init_weights_
-from tensorflowasr_tpu_torch.serve import bench_vad_punc as bvp
+from tensorflowasr_tpu_torch import testing as synth
 from tensorflowasr_tpu_torch.serve import engines as teng
 from tensorflowasr_tpu_torch.serve import model_server as tms
 from tensorflowasr_tpu_torch.serve import vad_machine as tvm
@@ -105,21 +105,21 @@ class Recorder:
 def models():
     """(JAX engines, port engines) on the same weights, and the stream."""
     jasr_model, asr_vars, tasr_model = pair(N_PHONE, N_CHAR, seed=2)
-    stream = bvp.tone_bursts(bvp.STREAM_PATTERN, seed=1)
+    stream = synth.tone_bursts(synth.STREAM_PATTERN, seed=1)
 
     vad = tvad.OnlineVAD()
     init_weights_(vad, torch.Generator().manual_seed(5))
-    vad_margin = bvp.calibrate_vad(vad, stream)
+    vad_margin = synth.calibrate_vad(vad, stream)
     vad_vars = nested(convert.to_flax_names(vad))
 
     cfg = tpunc.PuncConfig()
     punc = tpunc.PuncTransformer(cfg, len(PuncVocab.tokens),
-                                 2 + len(bvp.PUNC_TOKENS))
+                                 2 + len(synth.PUNC_TOKENS))
     init_weights_(punc, torch.Generator().manual_seed(4))
     rng = np.random.default_rng(5)
     ids = rng.integers(3, len(PuncVocab.tokens), (8, 64))
     ids[:, 0], ids[:, -1] = 1, 2
-    share = bvp.calibrate_punc(punc, ids, THRESHOLD)
+    share = synth.calibrate_punc(punc, ids, THRESHOLD)
     punc_vars = nested(convert.to_flax_names(punc))
     assert vad_margin > 1.0 and 0.15 < share < 0.35
 
@@ -130,13 +130,13 @@ def models():
         vad=jeng.VADEngine(jvad.OnlineVAD(), vad_vars, frame_input=80),
         punc=jeng.PuncEngine(jpunc.PuncTransformer(
             jpunc.PuncConfig(), len(PuncVocab.tokens),
-            2 + len(bvp.PUNC_TOKENS)), punc_vars, PuncVocab(),
-            bvp.PUNC_TOKENS, threshold=THRESHOLD))
+            2 + len(synth.PUNC_TOKENS)), punc_vars, PuncVocab(),
+            synth.PUNC_TOKENS, threshold=THRESHOLD))
     port_side = dict(
         asr=teng.ASREngine(tasr_model, chunk_seconds=0.5, sample_rate=SR,
                            text_featurizer=vocab),
         vad=teng.VADEngine(vad, device="cpu"),
-        punc=teng.PuncEngine(punc, PuncVocab(), bvp.PUNC_TOKENS,
+        punc=teng.PuncEngine(punc, PuncVocab(), synth.PUNC_TOKENS,
                              threshold=THRESHOLD, device="cpu"))
     return jax_side, port_side, stream
 
@@ -156,7 +156,7 @@ def test_task_content_event_flow_equals_jax():
     """Two bursts of speech, each then silence: start -> sends -> inter
     break -> end, state for state."""
     packet = int(0.02 * SR)
-    stream = bvp.tone_bursts(((0.3, False), (2.0, True), (0.3, False),
+    stream = synth.tone_bursts(((0.3, False), (2.0, True), (0.3, False),
                               (1.0, True), (2.5, False)), seed=2)
     trace = {}
     for name, mod in (("jax", jvm), ("port", tvm)):
@@ -188,7 +188,7 @@ def test_task_content_event_flow_equals_jax():
 
 def test_offline_segmenter_merge_and_resplit_equals_jax():
     sr8 = 8000
-    wav = bvp.tone_bursts(((0.5, False), (0.4, True), (0.05, False),
+    wav = synth.tone_bursts(((0.5, False), (0.4, True), (0.05, False),
                            (0.4, True), (1.0, False), (2.5, True),
                            (0.5, False), (0.3, True)), seed=3, sr=sr8)
     segs = {}
@@ -245,7 +245,7 @@ def test_stream_session_equals_jax(models):
     texts = [e["best_text"] for e in got if e["event_type"] in
              ("inter break", "sentence end")]
     assert all(texts) and len(set(texts)) == len(texts)
-    assert any(p in "".join(texts) for p in bvp.PUNC_TOKENS)
+    assert any(p in "".join(texts) for p in synth.PUNC_TOKENS)
     # float packets are the same session (the pcm16 round trip aside)
     floats, _, _ = run_stream(StreamASRSession, stream, port_side, pcm=False)
     assert [e["event_type"] for e in floats] == types
@@ -262,29 +262,29 @@ def test_punc_engine_oov_and_windows_equal_jax(models):
     for chars in (short, long, ["9", "Z"], []):
         got, want = tp.punc_recover(chars), jp.punc_recover(chars)
         assert got == want
-        assert [c for c in got if c not in bvp.PUNC_TOKENS] == chars
+        assert [c for c in got if c not in synth.PUNC_TOKENS] == chars
     check_margins([np.ones(1)], probs.seen)
     assert len(probs.seen[1]) == len([c for c in long if c in
                                       PuncVocab.tokens]) + 2
-    assert any(c in bvp.PUNC_TOKENS for c in tp.punc_recover(long))
+    assert any(c in synth.PUNC_TOKENS for c in tp.punc_recover(long))
     # an OOV char never gets punctuation after it
     out = tp.punc_recover(short)
     for a, b in zip(out, out[1:]):
         if a in ("9", "Z", "c4", "c9", "c14"):
-            assert b not in bvp.PUNC_TOKENS
+            assert b not in synth.PUNC_TOKENS
 
 
 def test_offline_session_with_vad_and_punc_equals_jax(models):
     jax_side, port_side, _ = models
     for seconds, seed in ((3.5, 11), (5.0, 12)):
-        wav = bvp.tone_bursts(bvp.file_pattern(seconds), seed=seed)
+        wav = synth.tone_bursts(synth.file_pattern(seconds), seed=seed)
         want = JOfflineASRSession(jax_side["asr"], jax_side["vad"],
                                   jax_side["punc"]).transcribe_wav(wav)
         session = OfflineASRSession(port_side["asr"], port_side["vad"],
                                     port_side["punc"])
         got = session.transcribe_wav(wav)
         assert got == want
-        bursts = sum(loud for _, loud in bvp.file_pattern(seconds))
+        bursts = sum(loud for _, loud in synth.file_pattern(seconds))
         assert len(got) == bursts and all(s["text"] for s in got)
         assert all(s["end_s"] > s["start_s"] for s in got)
         # each segment starts in a burst, not at 0
@@ -298,7 +298,7 @@ def test_build_asr_ops_with_vad_engine_equals_jax(models):
     ops = tms.build_asr_ops(port_side["asr"], port_side["vad"])
     jops = jms.build_asr_ops(jax_side["asr"], jax_side["vad"])
     assert sorted(ops) == sorted(jops)
-    frames = bvp.vad_frames(stream)[:, :300]
+    frames = synth.vad_frames(stream)[:, :300]
     got, want = ops["vad"](frames), np.asarray(jops["vad"](frames))
     assert got.shape == want.shape == (300,) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0,
@@ -335,7 +335,7 @@ def test_serve_model_with_vad_configs(models, tmp_path, capsys):
     args = serve_model.parser().parse_args(
         ["--data_config", odp, "--model_config", omp, "--device", "cpu",
          "--vad_data_config", vdp, "--vad_model_config", vmp])
-    frames = bvp.vad_frames(stream)[:, :200]
+    frames = synth.vad_frames(stream)[:, :200]
 
     # no VAD checkpoint: a warning and the seeded init
     ops = serve_model.build_ops(args)[0]
@@ -384,7 +384,7 @@ def test_cli_test_punc_equals_jax(models, tmp_path, capsys):
     (tmp_path / "chars.txt").write_text(
         "\n".join(["<S>", "</S>", *letters]), encoding="utf-8")
     (tmp_path / "puncs.txt").write_text(
-        "\n".join(["<S>", "</S>", *bvp.PUNC_TOKENS]), encoding="utf-8")
+        "\n".join(["<S>", "</S>", *synth.PUNC_TOKENS]), encoding="utf-8")
     (tmp_path / "punc.list").write_text("c0c1，c2。\n", encoding="utf-8")
     cfgs = {}
     for name in ("jax", "port"):
@@ -436,10 +436,10 @@ def test_cli_test_punc_equals_jax(models, tmp_path, capsys):
         printed[name] = outs
     assert printed["port"] == printed["jax"]
     joined = "".join(printed["port"])
-    assert any(p in joined for p in bvp.PUNC_TOKENS)
+    assert any(p in joined for p in synth.PUNC_TOKENS)
     for text, out in zip(lines, printed["port"]):
         assert "".join(c for c in out.strip()
-                       if c not in bvp.PUNC_TOKENS) == text
+                       if c not in synth.PUNC_TOKENS) == text
 
 
 

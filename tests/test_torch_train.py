@@ -173,8 +173,13 @@ def test_loss_metrics_and_every_gradient_leaf_match_jax():
             jmodel, params, variables["batch_stats"], jbatch,
             jax.random.PRNGKey(0), BLANK, True)
 
+    # XLA's multi-threaded Eigen splits its sums by the host's core count,
+    # so the reference gradients differ from host to host (one read 1.5x
+    # the bound below on a pointwise conv's kernel); single-threaded they
+    # are the same at any core count. The port's side runs on 2 threads.
     (want_loss, (want_metrics, want_stats)), want_grads = jax.jit(
-        jax.value_and_grad(f, has_aux=True))(variables["params"])
+        jax.value_and_grad(f, has_aux=True)).lower(variables["params"]) \
+        .compile({"xla_cpu_multi_thread_eigen": False})(variables["params"])
 
     total, metrics = ttrain.loss_and_metrics(tmodel.train(), to_torch(batch),
                                              BLANK)
@@ -437,31 +442,6 @@ def test_train_step_marks_its_stages_and_takes_the_same_step(tmp_path):
     want = plain.state.model.state_dict()
     for k, v in marked.state.model.state_dict().items():
         assert torch.equal(v, want[k]), k
-
-
-def test_bench_batch_is_the_training_benchmark_batch():
-    """Shapes, ranges and seed of the batch the card is timed on, and the
-    full-width model the shipped configs give."""
-    from tensorflowasr_tpu_torch.models.conformer import ConformerConfig
-    from tensorflowasr_tpu_torch.train import bench_batch as bb
-
-    batch = bb.train_batch(b=3, seconds=1.0, n_phones=6, n_chars=4)
-    assert batch["wav"].shape == (3, 16000)
-    assert batch["wav"].dtype == np.float32
-    assert batch["input_length"].tolist() == [25] * 3
-    assert batch["phone_length"].tolist() == [6] * 3
-    assert batch["phones"].min() >= 1
-    assert batch["phones"].max() < bb.N_PHONE - 1        # never the blank
-    assert 1 <= batch["chars"].min() and batch["chars"].max() < bb.N_CHAR
-    again = bb.train_batch(b=3, seconds=1.0, n_phones=6, n_chars=4)
-    assert all(np.array_equal(batch[k], again[k]) for k in batch)
-    assert (bb.TRAIN_B, bb.TRAIN_SECONDS, bb.TRAIN_PHONES,
-            bb.TRAIN_CHARS) == (128, 8, 64, 32)
-    cfg = ConformerConfig.from_user_config(bb.shipped_config(), "float32")
-    assert (cfg.dmodel, cfg.num_blocks, cfg.num_heads, cfg.head_size,
-            cfg.kernel_size, cfg.dropout) == (144, 13, 4, 36, 32, 0.1)
-    off = bb.shipped_config(extra={"model_config": {"dropout": 0.0}})
-    assert ConformerConfig.from_user_config(off, "float32").dropout == 0.0
 
 
 def test_checkpoint_manager_keeps_the_newest_and_writes_whole_files(tmp_path):
