@@ -28,7 +28,12 @@ Weights come from ``models/convert.py`` (flax variables) or from
 The recorder (``utils/telemetry.py``) keeps three stages as leaf spans,
 ``tasr::`` ranges in a profiler's trace: ``conformer.stack`` (subsampling
 and blocks, after the log-mel op), ``conformer.ctc_head`` and
-``conformer.translator``.
+``conformer.translator``. On the card, in inference, each stage's body
+replays as a CUDA graph of its input signature once the signature repeats
+(``models/graphs.py``); a replay's span opens the range ``tasr.<stage>``,
+which no trace reduction credits with device time. Every call of a stage
+records the counter ``conformer.graph``, 1 on a replay and 0 on an eager
+body.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tensorflowasr_tpu_torch.models.graphs import GraphedStage
 from tensorflowasr_tpu_torch.models.leaf import Leaf
 from tensorflowasr_tpu_torch.models.layers import (
     BatchNorm,
@@ -54,7 +60,6 @@ from tensorflowasr_tpu_torch.models.wav_model import WavePickModel
 from tensorflowasr_tpu_torch.ops import frontend as fe
 from tensorflowasr_tpu_torch.ops.ctc import collapse_and_remove_blank
 from tensorflowasr_tpu_torch.ops.specaug import spec_augment
-from tensorflowasr_tpu_torch.utils import telemetry
 from tensorflowasr_tpu_torch.utils.device import resolve_device
 
 N_FFT = 1024
@@ -253,7 +258,7 @@ def _remat(block: nn.Module, x: torch.Tensor,
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
-class ConformerEncoder(nn.Module):
+class ConformerEncoder(GraphedStage):
     """wav [B, T(,1)] -> [B, ceil(ceil(T/hop)/rf), dmodel] f32."""
 
     def __init__(self, cfg: ConformerConfig):
@@ -283,26 +288,29 @@ class ConformerEncoder(nn.Module):
         subsampling (+ the ``wav_layer`` features of ``wav`` [B, T(, 1)]
         under ``add_wav_info``) -> blocks -> [B, T', dmodel] f32: the
         stage ``conformer.stack``, after the log-mel op."""
+        inputs = (mel,) if self.wav_layer is None else (mel, wav)
+        return self.stage_graphs(self, "conformer.stack", self._stack_body,
+                                 inputs)
+
+    def _stack_body(self, mel: torch.Tensor,
+                    wav: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.cfg
-        with telemetry.span("conformer.stack", leaf=True, shared=True):
-            if self.training and c.spec_augment:
-                if self.generator is None:
-                    raise RuntimeError("training-mode SpecAugment needs a "
-                                       "generator: call set_generator "
-                                       "first")
-                mel = spec_augment(
-                    mel, self.generator, n_freq_masks=c.specaug_freq_masks,
-                    freq_width=c.specaug_freq_width,
-                    n_time_masks=c.specaug_time_masks,
-                    time_ratio=c.specaug_time_ratio)
-            x = self.conv_subsampling(mel[..., None])
-            if self.wav_layer is not None:
-                x = x + self.wav_layer(wav)[:, :x.shape[1]]
-            remat = (c.remat_blocks and self.training
-                     and torch.is_grad_enabled())
-            for block in self.blocks:
-                x = _remat(block, x, self.generator) if remat else block(x)
-            return x.to(torch.float32)
+        if self.training and c.spec_augment:
+            if self.generator is None:
+                raise RuntimeError("training-mode SpecAugment needs a "
+                                   "generator: call set_generator first")
+            mel = spec_augment(
+                mel, self.generator, n_freq_masks=c.specaug_freq_masks,
+                freq_width=c.specaug_freq_width,
+                n_time_masks=c.specaug_time_masks,
+                time_ratio=c.specaug_time_ratio)
+        x = self.conv_subsampling(mel[..., None])
+        if self.wav_layer is not None:
+            x = x + self.wav_layer(wav)[:, :x.shape[1]]
+        remat = c.remat_blocks and self.training and torch.is_grad_enabled()
+        for block in self.blocks:
+            x = _remat(block, x, self.generator) if remat else block(x)
+        return x.to(torch.float32)
 
 
 class StreamingConformerEncoder(ConformerEncoder):
@@ -329,7 +337,7 @@ class StreamingConformerEncoder(ConformerEncoder):
         return x.reshape(b, -1, self.cfg.dmodel)
 
 
-class CTCDecoder(nn.Module):
+class CTCDecoder(GraphedStage):
     """[B, T', dmodel] -> [B, T', num_classes] phone logits (f32 head)."""
 
     def __init__(self, cfg: ConformerConfig, num_classes: int):
@@ -344,14 +352,17 @@ class CTCDecoder(nn.Module):
         self.fully_connected = Dense(cfg.dmodel, num_classes, torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with telemetry.span("conformer.ctc_head", leaf=True, shared=True):
-            x = self.project(x)
-            for block in self.blocks:
-                x = block(x)
-            return self.fully_connected(x)
+        return self.stage_graphs(self, "conformer.ctc_head", self._body,
+                                 (x,))
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.project(x)
+        for block in self.blocks:
+            x = block(x)
+        return self.fully_connected(x)
 
 
-class Translator(nn.Module):
+class Translator(GraphedStage):
     """(phone ids [B, U], enc [B, T', dmodel]) -> char logits [B, U,
     classes]: a non-autoregressive pass of cross-attention RBlocks."""
 
@@ -369,13 +380,17 @@ class Translator(nn.Module):
 
     def forward(self, phone_ids: torch.Tensor, enc: torch.Tensor
                 ) -> torch.Tensor:
-        with telemetry.span("conformer.translator", leaf=True, shared=True):
-            x = F.embedding(phone_ids.long(), self.inp_embedding.weight)
-            x = x.to(self.compute_dtype)
-            enc = enc.to(self.compute_dtype)
-            for block in self.blocks:
-                x = block(x, enc)
-            return self.fully_connected(x)
+        return self.stage_graphs(self, "conformer.translator", self._body,
+                                 (phone_ids, enc))
+
+    def _body(self, phone_ids: torch.Tensor, enc: torch.Tensor
+              ) -> torch.Tensor:
+        x = F.embedding(phone_ids.long(), self.inp_embedding.weight)
+        x = x.to(self.compute_dtype)
+        enc = enc.to(self.compute_dtype)
+        for block in self.blocks:
+            x = block(x, enc)
+        return self.fully_connected(x)
 
 
 class ConformerCTC(nn.Module):

@@ -23,8 +23,10 @@ with :func:`set_generator`; nothing reads the global RNG.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -447,18 +449,40 @@ def positional_encoding(length: int, dmodel: int) -> np.ndarray:
     return pe
 
 
+_collecting = threading.local()      # .tensors: a collect_constants list
+
+
+@contextlib.contextmanager
+def collect_constants():
+    """Collect, in the list this yields, what every :func:`tensor_cache`
+    function hands out on this thread inside the block: a captured CUDA
+    graph reads such a constant at its address, so it keeps the list as
+    long as it lives, after the cache has let the constant go."""
+    prev = getattr(_collecting, "tensors", None)
+    _collecting.tensors = tensors = []
+    try:
+        yield tensors
+    finally:
+        _collecting.tensors = prev
+
+
 def tensor_cache(fn):
     """``functools.lru_cache`` for a function that builds a constant
     tensor, bypassed while ``torch.export`` (or ``torch.compile``) traces:
     a tensor made then belongs to the tracer and must not reach a later
-    eager call."""
+    eager call. Inside :func:`collect_constants` what it hands out is
+    collected."""
     cached = functools.lru_cache(maxsize=64)(fn)
 
     @functools.wraps(fn)
     def build(*args):
         if torch.compiler.is_compiling():
             return fn(*args)
-        return cached(*args)
+        out = cached(*args)
+        collected = getattr(_collecting, "tensors", None)
+        if collected is not None:
+            collected.append(out)
+        return out
     return build
 
 

@@ -87,15 +87,16 @@ class _Span:
     """``with``-block of one span: two clock reads and one ring record; a
     ``record_function`` range around it only while a profiler records."""
 
-    __slots__ = ("ring", "t0", "rf")
+    __slots__ = ("ring", "mirror", "t0", "rf")
 
-    def __init__(self, ring: _Ring):
+    def __init__(self, ring: _Ring, mirror: str):
         self.ring = ring
+        self.mirror = mirror
         self.rf = None
 
     def __enter__(self):
         if _profiling():
-            self.rf = _record_function(self.ring.mirror)
+            self.rf = _record_function(self.mirror)
             self.rf.__enter__()
         self.t0 = _clock()
         return self
@@ -114,9 +115,13 @@ class Recorder:
     (``leaf=True``: a range that holds no other ``tasr::`` range or op, so
     a trace's reduction can credit it with the device time of the kernels
     launched inside it, as it does the ``tasr::`` custom ops) and
-    ``tasr.<name>`` for every other span. ``shared=True`` marks a name that
-    more than one thread may write (a model's stages, a served engine); it
-    takes a lock. A name is a span or a counter, fixed by its first use."""
+    ``tasr.<name>`` for every other span. ``linked=False`` names a leaf
+    stage's range ``tasr.<name>`` too, for a region whose kernels a trace
+    does not link to the ops inside it (a replayed CUDA graph links only a
+    few), so that no reduction credits it with part of its device time.
+    ``shared=True`` marks a name that more than one thread may write (a
+    model's stages, a served engine); it takes a lock. A name is a span or
+    a counter, fixed by its first use."""
 
     def __init__(self):
         self._rings: Dict[str, _Ring] = {}
@@ -129,9 +134,10 @@ class Recorder:
             ring = self._rings.setdefault(name, _Ring(kind, mirror, shared))
         return ring
 
-    def span(self, name: str, leaf: bool = False, shared: bool = False
-             ) -> _Span:
-        return _Span(self._ring(name, "span", leaf, shared))
+    def span(self, name: str, leaf: bool = False, shared: bool = False,
+             linked: bool = True) -> _Span:
+        ring = self._ring(name, "span", leaf, shared)
+        return _Span(ring, ring.mirror if linked else "tasr." + name)
 
     def count(self, name: str, value: float, shared: bool = False) -> None:
         """Record ``value`` under the counter ``name``; ``shared`` as for

@@ -196,6 +196,25 @@ def test_no_record_function_without_a_profiler(monkeypatch):
     assert len(telemetry.between("pool.stage")) == 2
 
 
+def test_an_unlinked_leaf_span_opens_a_plain_range(monkeypatch):
+    opened = []
+
+    def record_function(name):
+        opened.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(telemetry, "_record_function", record_function)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        with telemetry.span("conformer.stack", leaf=True):
+            pass
+        with telemetry.span("conformer.stack", leaf=True, linked=False):
+            pass
+    # one name, one ring: the range's name alone differs
+    assert opened == ["tasr::conformer.stack", "tasr.conformer.stack"]
+    assert len(telemetry.between("conformer.stack")) == 2
+
+
 # -- the layers' records --------------------------------------------------------
 
 def test_pool_records_a_ticks_dispatches_and_their_phases():
